@@ -1,4 +1,4 @@
-"""Apertis-TPU: a TPU-native (JAX/XLA/Pallas) LLM framework with the full
+"""Apertis: a JAX/XLA LLM framework for NVIDIA GPUs with the full
 capability surface of the Apertis reference implementation.
 
 Public API mirrors the reference package layout: config + model factory,

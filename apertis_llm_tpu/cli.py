@@ -182,7 +182,7 @@ def create_pipeline_config_command(args) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="Apertis CLI - TPU-native Apertis LLM framework",
+        description="Apertis CLI - JAX Apertis LLM framework",
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -287,7 +287,7 @@ COMMANDS = {
 def main(argv=None) -> None:
     from apertis_llm_tpu.utils.jax_cache import maybe_enable_cache
 
-    maybe_enable_cache()  # APERTIS_JAX_CACHE_DIR: persistent compile cache
+    maybe_enable_cache()  # persistent compile cache (utils/jax_cache.py)
     args = build_parser().parse_args(argv)
     COMMANDS[args.command](args)
 

@@ -90,7 +90,7 @@ class ApertisConfig:
     # Architectural flags
     use_rmsnorm: bool = False
     use_swiglu: bool = False
-    # --- TPU-native extensions (absent from reference; defaults keep parity) ---
+    # --- JAX extensions (absent from reference; defaults keep parity) ---
     dtype: str = "float32"  # compute dtype for activations on device
     param_dtype: str = "float32"  # storage dtype for parameters
     decode_max_length: int = 2048  # static decode cache length
@@ -103,7 +103,8 @@ class ApertisConfig:
     # sort-based ragged dispatch: at decode batch sizes every expert's
     # weights are read from HBM anyway, so the dense path costs the same
     # memory time while skipping the per-layer argsort/scatter/gather (the
-    # crossover to compute-bound is ~peak_flops/HBM_bw ≈ 256 rows/expert).
+    # crossover to compute-bound is ~peak_flops/HBM_bw: ~295 rows/expert on
+    # an H100, 989 TFLOP/s over 3.35 TB/s).
     moe_dense_threshold_tokens: int = 256
 
     def __post_init__(self) -> None:

@@ -2,7 +2,7 @@
 
 Same schema as the reference (reference: src/data_pipeline/config.py:5-146)
 plus a ``backend`` selector: ``local`` (multiprocessing, default — runs
-anywhere and feeds a single strong TPU host) or ``spark`` (PySpark cluster,
+anywhere and feeds a single strong accelerator host) or ``spark`` (PySpark cluster,
 used when pyspark is installed).
 """
 

@@ -63,27 +63,16 @@ class GenerationParams(NamedTuple):
 
 
 def _compiler_options(decode: bool = False) -> Optional[Dict[str, Any]]:
-    """Optional XLA build options for the engine's serving programs.
+    """Optional XLA build options for the engine's prefill programs.
 
-    ``APERTIS_COMPILE_EFFORT=<float>`` maps to the TPU compiler's
+    ``APERTIS_COMPILE_EFFORT=<float>`` sets XLA's
     ``exec_time_optimization_effort`` (0.0 = default; negative trades
-    optimisation time for compile time). ``APERTIS_COMPILE_LHS=0`` disables
-    the latency-hiding scheduler. Bring-up knobs for prefill-side programs;
-    measured compile times are in docs/README.md "Serving bring-up".
-
-    The effort knob is NOT applied to decode-loop programs
-    (``decode=True``): at effort -1 the scheduler's different spill choices
-    pushed the fused SSM decode-step kernel 356 KB past the 16 MB scoped
-    VMEM limit at the 1.5B b256 shapes (measured round 4) — the decode
-    programs compile in seconds anyway.
-    """
-    opts: Dict[str, Any] = {}
+    optimisation for compile time). Decode-loop programs (``decode=True``)
+    keep the default: they compile in seconds."""
     effort = os.environ.get("APERTIS_COMPILE_EFFORT")
     if effort and not decode:
-        opts["exec_time_optimization_effort"] = float(effort)
-    if os.environ.get("APERTIS_COMPILE_LHS") == "0":
-        opts["xla_tpu_enable_latency_hiding_scheduler"] = False
-    return opts or None
+        return {"exec_time_optimization_effort": float(effort)}
+    return None
 
 
 def _round_up_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -286,40 +275,6 @@ def _generate_impl(
                         config=config, gen=gen, lp=lp, num_img=num_img)
 
 
-def _normalize_layouts(tree):
-    """Force default (row-major) physical layouts on large serving leaves.
-
-    XLA picks output layouts for the engine's attach program freely, and
-    for the fat MoE stack it chose to store ``w2t_q`` (L, E*I, H) PHYSICALLY
-    TRANSPOSED (major_to_minor (0, 2, 1)). Measured effect on the decode
-    step itself: NONE (the pallas custom call constrains its operand
-    layouts, so XLA relayouts once at program entry either way) — kept
-    because the one-time normalization copy here is cheaper and more
-    predictable than letting every consuming program carry its own
-    boundary relayout of a ~700 MB stack."""
-    try:
-        from jax.experimental.layout import Format, Layout
-    except Exception:                      # pragma: no cover - old jax
-        return tree
-
-    def fix(x):
-        if not isinstance(x, jax.Array) or x.ndim < 2 or x.size < (1 << 16):
-            return x
-        try:
-            layout = x.format.layout
-        except Exception:                  # non-addressable / cpu arrays
-            return x
-        if layout is None:
-            return x
-        default = tuple(range(x.ndim))
-        if tuple(layout.major_to_minor) == default:
-            return x
-        return jax.device_put(
-            x, Format(Layout(major_to_minor=default), x.sharding))
-
-    return jax.tree.map(fix, tree)
-
-
 class InferenceEngine:
     """Owns compiled generate/prefill programs for one (config, params) pair."""
 
@@ -332,76 +287,34 @@ class InferenceEngine:
         # Serving mesh: when it carries an expert axis >1 the engine traces
         # its programs inside parallel_context so the MoE FFN routes through
         # the engineered all-to-all dispatch (ops/moe_ep.py) instead of
-        # whatever comms GSPMD infers from gather/scatter (VERDICT r2 #5).
+        # whatever comms GSPMD infers from gather/scatter.
         self.mesh = mesh
         if dtype is not None:
             target = jnp.dtype(dtype)
             self.params = jax.tree.map(
                 lambda x: x.astype(target) if jnp.issubdtype(x.dtype, jnp.floating) else x,
                 params)
-        # Serving-side weight preparation, composed into ONE jitted program:
-        # eagerly-dispatched attach work (tens of small transposes/slices/
-        # quantizes) measured ~15 s of fresh-process bring-up at 1.5B through
-        # this environment's op-at-a-time dispatch; a single compiled program
-        # runs it in well under a second.
+        # Serving-side weight preparation, composed into one jitted program
+        # (dispatched op by op, the attach work is tens of small programs).
+        # Each step leaves the base tree in place for prefill and training;
+        # both are skipped under a serving mesh, whose sharding specs
+        # describe the base tree.
         attach_steps = []
-        moe_mode = os.environ.get("APERTIS_MOE_FUSED", "fatk")
-        if (config.use_expert_system and config.num_experts > 0
-                and mesh is None and moe_mode != "0"):
-            # Pre-build a fused dense-decode expert stack (models/moe_fuse.py);
-            # the decode _ffn dispatches on its presence. "fatk" (default) =
-            # combine-folded fat layout through the fused Pallas kernel
-            # (ops/pallas/moe_ffn.expert_ffn_fat — hidden tile stays in
-            # VMEM); "fat" = same layout, plain-XLA GEMMs (hidden round-trips
-            # HBM: measured 10.5 vs 8.3 ms/step at 1.5B b256); "1"/"kernel" =
-            # per-expert Pallas kernel (~equal to plain XLA dense); "0" =
-            # plain XLA dense. Skipped under a serving mesh, where the EP
-            # all-to-all path owns the expert weights' sharding.
+        if config.use_expert_system and config.num_experts > 0 and mesh is None:
+            # Combine-folded fat expert stack read by the MoE decode path
+            # (models/moe_fuse.py, ops/moe.moe_dense_fat).
             from apertis_llm_tpu.models.moe_fuse import attach_fused_decode_params
 
-            attach_steps.append(functools.partial(
-                attach_fused_decode_params,
-                mode="fat" if moe_mode in ("fat", "fatk") else "kernel"))
+            attach_steps.append(attach_fused_decode_params)
         if mesh is None and os.environ.get("APERTIS_QUANT_HEAD", "1") != "0":
             # Serving int8 copy of the tied LM head (models/quantize.py):
-            # the decode step's single largest projection otherwise reads
-            # the full bf16 embedding table every token. Engine-local like
-            # the fused stacks below; skipped under a serving mesh, whose
-            # sharding specs describe the base tree.
+            # the decode step's largest projection otherwise reads the full
+            # bf16 embedding table every token.
             from apertis_llm_tpu.models.quantize import (
                 quantize_tied_head, tree_is_quantized)
 
             if tree_is_quantized(self.params):
                 attach_steps.append(quantize_tied_head)
-        if (mesh is None
-                and os.environ.get("APERTIS_QUANT_BITS", "8") == "4"
-                and not config.use_swiglu
-                and not (config.use_expert_system and config.num_experts > 0)):
-            # w4a8: int4 decode copy of the dense FFN (models/quantize.
-            # attach_int4_ffn). Prefill keeps the int8 tree — the packed
-            # form is decode-only (in-graph unpacks measurably poisoned
-            # the prefill program's compile time and latency).
-            from apertis_llm_tpu.models.quantize import attach_int4_ffn
-
-            attach_steps.append(attach_int4_ffn)
-        if (config.attention_type == "standard_mha" and mesh is None
-                and os.environ.get("APERTIS_MHA_QKV", "1") == "1"):
-            # Fused QKV decode projection (models/quantize.attach_qkv_mha):
-            # one int8 dot + dequant per layer instead of three. No-op on
-            # non-int8 trees.
-            from apertis_llm_tpu.models.quantize import attach_qkv_mha
-
-            attach_steps.append(attach_qkv_mha)
-        if (config.attention_type == "selective_ssm" and mesh is None
-                and os.environ.get("APERTIS_SSM_STEP", "auto") != "0"):
-            # Fused SSM decode-step weight pack (models/ssm_fuse.py): a
-            # no-op unless the tree carries the quantized/RMS layout the
-            # kernel needs; dispatch itself is gated per trace
-            # (ops/pallas/ssm_step.ssm_step_fused_enabled).
-            from apertis_llm_tpu.models.ssm_fuse import attach_fused_ssm_params
-
-            attach_steps.append(
-                functools.partial(attach_fused_ssm_params, config=config))
         if attach_steps:
             def attach(tree):
                 for step in attach_steps:
@@ -409,16 +322,15 @@ class InferenceEngine:
                 return tree
 
             self.params = jax.jit(attach)(self.params)
-            self.params = _normalize_layouts(self.params)
         self._compiled: Dict[Any, Any] = {}
 
     def _trace_context(self):
         """Context manager active while jitted programs trace/compile.
 
-        Any serving mesh enters the context (single-device Pallas fast
-        paths like the fused LN+quantize check ``current().mesh`` and stand
-        down under GSPMD-sharded programs); the expert axis additionally
-        routes the MoE FFN through the engineered all-to-all dispatch."""
+        Any serving mesh enters the context (single-device kernels check
+        ``current().mesh`` and stand down under GSPMD-sharded programs);
+        the expert axis additionally routes the MoE FFN through the
+        engineered all-to-all dispatch."""
         if self.mesh is not None:
             from apertis_llm_tpu.parallel.context import parallel_context
 
@@ -487,6 +399,16 @@ class InferenceEngine:
             self._compiled[key] = fn
         return fn
 
+    def _prefill_shape(self, l: int, has_image: bool) -> Tuple[int, int]:
+        """(image-prefix length, padded text length) of an ``l``-token
+        prompt. The total prefill length (image prefix + text bucket) is
+        aligned to a multiple of 8 rows; the extra columns are ordinary
+        bucket padding, masked out and state-invisible like any right-pad."""
+        num_img = (self.config.num_image_tokens
+                   if self.config.multimodal and has_image else 0)
+        bucket = _round_up_bucket(l, self.PROMPT_BUCKETS)
+        return num_img, bucket + (-(num_img + bucket)) % 8
+
     def generate(
         self,
         input_ids: np.ndarray,                 # (B, L) int
@@ -513,16 +435,7 @@ class InferenceEngine:
         b, l = input_ids.shape
         if attention_mask is None:
             attention_mask = np.ones((b, l), np.int32)
-        bucket = _round_up_bucket(l, self.PROMPT_BUCKETS)
-        num_img = (self.config.num_image_tokens
-                   if (self.config.multimodal and pixel_values is not None) else 0)
-        # Align the model's total prefill length (image prefix + text bucket)
-        # to the 8-row sublane tile: with a misaligned total (e.g. 197 + 32),
-        # every (B, L, D) <-> (B*L, D) flatten around the per-layer matmuls
-        # is a real relayout copy (profiled at ~130 ms of the b256 TTFT);
-        # aligned, they are bitcasts. The extra columns are ordinary bucket
-        # padding — masked out and state-invisible like any right-pad.
-        bucket += (-(num_img + bucket)) % 8
+        num_img, bucket = self._prefill_shape(l, pixel_values is not None)
         _check_position_limit(self.config,
                               num_img + bucket + gen.max_new_tokens)
         padded_ids, padded_mask = input_ids, attention_mask
@@ -561,9 +474,8 @@ class InferenceEngine:
                         jnp.asarray(gen.max_new_tokens, jnp.int32),
                         jnp.asarray(gen.min_new_tokens, jnp.int32))
                 n_generated = int(length) - bucket
-            # Fetch only the generated columns: the capacity-sized buffer is
-            # ~2 MB at b256 and this environment's host link is slow; the
-            # device-side slice costs a trivial program per distinct width.
+            # Fetch only the generated columns of the capacity-sized buffer;
+            # the device-side slice costs a trivial program per width.
             tokens = np.asarray(
                 dev_tokens[:, bucket:bucket + max(n_generated, 0)])
             return np.concatenate([input_ids, tokens], axis=1)
@@ -580,6 +492,33 @@ class InferenceEngine:
         # generated columns (internal bucket padding stripped).
         return np.concatenate([input_ids, tokens[:, bucket:bucket + n_generated]],
                               axis=1)
+
+    def last_token_logits(
+        self,
+        input_ids: np.ndarray,                 # (B, L) int, unpadded
+        pixel_values: Optional[np.ndarray] = None,
+    ) -> jax.Array:
+        """(B, V) logits of each prompt's last token from the serving
+        prefill program (bucketed and padded exactly as :meth:`generate`
+        pads): what a correctness check compares with a reference
+        forward."""
+        input_ids = np.asarray(input_ids)
+        b, l = input_ids.shape
+        num_img, bucket = self._prefill_shape(l, pixel_values is not None)
+        pad_id = self.config.pad_token_id or 0
+        padded = np.pad(input_ids, ((0, 0), (0, bucket - l)),
+                        constant_values=pad_id)
+        attn = np.pad(np.ones((b, l), np.int32), ((0, 0), (0, bucket - l)))
+        cache_len = num_img + bucket + 1
+        fn = self._jit_prefill(cache_len, pixel_values is not None)
+        cache = model_lib.init_cache(self.config, b, max_length=cache_len)
+        kwargs = ({"pixel_values": jnp.asarray(pixel_values)}
+                  if pixel_values is not None else {})
+        with self._trace_context():
+            pre = fn(self.params, cache, jnp.asarray(padded),
+                     jnp.asarray(attn), jnp.full((b,), l - 1, jnp.int32),
+                     **kwargs)
+        return pre.logits[:, 0, :]
 
     # -- streaming ------------------------------------------------------
     def stream(
@@ -610,10 +549,8 @@ class InferenceEngine:
         input_ids = np.asarray(input_ids)
         b, l = input_ids.shape
         assert b == 1, "streaming supports batch 1"
-        num_img = config.num_image_tokens if (config.multimodal and pixel_values is not None) else 0
+        num_img, bucket = self._prefill_shape(l, pixel_values is not None)
         pad_id = config.pad_token_id if config.pad_token_id is not None else 0
-        bucket = _round_up_bucket(l, self.PROMPT_BUCKETS)
-        bucket += (-(num_img + bucket)) % 8   # sublane-align prefix + bucket
         _check_position_limit(config, num_img + bucket + max_new)
         cache_len = num_img + bucket + max_new
 

@@ -145,7 +145,7 @@ class ApertisInterface:
             self.config = config
             if self.quantize == "int8":
                 # Weight-only int8 serving: {w_q, w_s} trees; the engine's
-                # batch-aware dispatch picks dequant vs int8-MXU per shape.
+                # row-count dispatch picks dequant vs dynamic int8 (ops/quant.py).
                 from apertis_llm_tpu.models.quantize import quantize_params
 
                 params = quantize_params(params)

@@ -285,7 +285,7 @@ def launch_ui(interface, port: int = 7860, share: bool = False) -> None:
     backend = UIBackend(interface)
 
     with gr.Blocks(title="Apertis AI Studio") as app:
-        gr.Markdown("# Apertis AI Studio (TPU)")
+        gr.Markdown("# Apertis AI Studio")
         with gr.Tabs():
             with gr.TabItem("Chat"):
                 chatbot = gr.Chatbot(height=500, label="Apertis Chat")

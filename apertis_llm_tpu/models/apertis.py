@@ -1,6 +1,6 @@
 """Apertis decoder-only LM — functional forward passes.
 
-TPU-native redesign of the reference model (reference: src/model/core.py):
+JAX redesign of the reference model (reference: src/model/core.py):
   * parameters are stacked per-layer pytrees; depth is traversed with
     ``lax.scan`` (one compiled layer body regardless of depth),
   * the decode path uses preallocated static-shape caches — KV ring for
@@ -19,15 +19,16 @@ from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
-import functools
 import os
 
 import jax
 import jax.numpy as jnp
 
+from apertis_llm_tpu import backend
 from apertis_llm_tpu.config import ApertisConfig
 from apertis_llm_tpu.ops import attention as attn_ops
 from apertis_llm_tpu.ops import moe as moe_ops
+from apertis_llm_tpu.ops import quant as quant_ops
 from apertis_llm_tpu.ops import ssm as ssm_ops
 from apertis_llm_tpu.ops.activations import get_activation, silu
 from apertis_llm_tpu.ops.norms import layer_norm, rms_norm
@@ -56,16 +57,9 @@ class PrefillOutput(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def _decode_unroll(num_layers: int) -> int:
-    """Unroll factor for the decode-step layer scan (APERTIS_DECODE_UNROLL).
-
-    Default 1: unrolling was hypothesised to amortise while-loop overhead
-    for deep-skinny stacks (the MoE presets: 44 layers at hidden ~704),
-    but measured on v5e it REGRESSES decode — the 1.5B MoE at b256 went
-    12.03 ms/step with unroll=4 vs 8.28 ms/step rolled (the rolled scan
-    pipelines each layer's stacked-weight prefetch against the previous
-    body; the unrolled body defeats that overlap). The env knob remains
-    for experiments; parity is bit-exact either way
-    (test_decode_unroll_parity)."""
+    """Unroll factor for the decode-step layer scan (APERTIS_DECODE_UNROLL,
+    default 1). Parity is bit-exact either way (test_decode_unroll_parity);
+    its effect on the GPU's decode step is not measured."""
     env = os.environ.get("APERTIS_DECODE_UNROLL", "").strip()
     if env:
         return max(1, min(int(env), num_layers))
@@ -78,171 +72,27 @@ def _apply_norm(p: Params, x: jnp.ndarray, eps: float) -> jnp.ndarray:
     return layer_norm(x, p["w"], p["b"], eps=eps)
 
 
-def _quant_mode() -> str:
-    """APERTIS_QUANT_MATMUL: 'weightonly' (XLA dequant expression — exact
-    math, bandwidth-bound win at small batch: 4.1x bf16 measured at M=64),
-    'dyn' (int8 x int8 on the MXU via XLA's native int8 dot with per-row
-    activation quantization — 2.4x bf16 matmul throughput measured at M=256,
-    ~0.5% activation rounding error), 'pallas' (the hand-written dequant
-    kernel; measured slower than XLA's own int8 pipelines at decode shapes,
-    kept for comparison), or 'auto' (default: dyn once the token dimension
-    saturates the MXU, else weightonly)."""
-    import os
-
-    return os.environ.get("APERTIS_QUANT_MATMUL", "auto")
-
-
 def _linear(p: Params, x: jnp.ndarray) -> jnp.ndarray:
-    if "w_q4" in p:
-        # int4-packed weights (models/quantize.quantize_weight_int4,
-        # APERTIS_QUANT_BITS=4). The XLA path unpacks to int8 in-graph —
-        # the dequant/unpack fuses into the consuming dot's operand load;
-        # the decode hot paths consume the PACKED form directly in the
-        # fused kernels (ffn_fused.py / moe_ffn.py) for the bandwidth win.
-        from apertis_llm_tpu.models.quantize import unpack_int4
+    """``x @ w (+ b)`` for plain, int8 (``w_q``/``w_s``) and int4-packed
+    (``w_q4``/``w_s``/``w_sh``) linears. Quantized weights take the dynamic
+    int8 dot or the weight-only dequant by row count (ops/quant.py)."""
+    if "w_q4" in p or "w_q" in p:
+        if "w_q4" in p:
+            from apertis_llm_tpu.models.quantize import unpack_int4
 
+            w_q = unpack_int4(p["w_q4"], p.get("w_sh"))
+        else:
+            w_q = p["w_q"]
         rows = x.size // x.shape[-1]
-        if _quant_mode() in ("auto", "dyn") and rows >= 128 and _on_tpu():
-            from apertis_llm_tpu.ops.pallas.quant_matmul import (
-                quant_matmul_dyn_xla)
-
-            y = quant_matmul_dyn_xla(x, unpack_int4(p["w_q4"], p.get("w_sh")),
-                                     p["w_s"])
+        if quant_ops.use_dyn(rows):
+            y = quant_ops.quant_matmul_dyn_xla(x, w_q, p["w_s"])
         else:
-            y = x @ (unpack_int4(p["w_q4"], p.get("w_sh")).astype(x.dtype)
-                     * p["w_s"].astype(x.dtype))
-        if "b" in p:
-            y = y + p["b"]
-        return y
-    if "w_q" in p:
-        # int8 weights with per-output-channel scales. Small row counts
-        # (decode at modest batch) are weight-bandwidth-bound: XLA's dequant
-        # fusion reads int8 and converts in VMEM better than our Pallas
-        # tiling (measured 0.24 vs 1.11 ms on a decode-shaped chain at
-        # M=64). MXU-saturating row counts switch to XLA's native int8 dot
-        # with dynamic activation quantization (449 vs 190 bf16 TFLOP/s at
-        # M=256).
-        mode = _quant_mode()
-        if not _on_tpu() and mode not in ("dyn", "fused"):
-            mode = "weightonly"          # Pallas/auto-dyn are TPU-tuned
-                                         # (fused interprets off-TPU)
-        rows = 1
-        for d in x.shape[:-1]:
-            rows *= d
-        # auto: dyn from 128 rows up. Clean-chain rates at the serving
-        # model's FFN shapes (T=58k, 2432<->9728, round 3): dyn 194
-        # TFLOP/s, weight-only dequant 142, pure bf16 146 — dyn is never
-        # worse, and at decode row counts it additionally halves the
-        # weight read (72.5k vs 54k tok/s end-to-end at b256). In-context
-        # prefill TTFT measured equal (1100 vs 1110 ms) for dyn vs
-        # weight-only — the model's fusion mix runs both at ~159 TFLOP/s —
-        # so the dispatch stays the simple row threshold.
-        if mode == "fused":
-            # In-kernel activation quantization (sub-channel scales):
-            # x read once from HBM, int8 MXU dot. Experimental dispatch —
-            # see ops/pallas/quant_matmul.quant_matmul_dyn_fused.
-            from apertis_llm_tpu.ops.pallas.quant_matmul import (
-                quant_matmul_dyn_fused)
-
-            y = quant_matmul_dyn_fused(x, p["w_q"], p["w_s"])
-        elif mode == "dyn" or (mode == "auto" and rows >= 128):
-            from apertis_llm_tpu.ops.pallas.quant_matmul import (
-                quant_matmul_dyn_xla)
-
-            y = quant_matmul_dyn_xla(x, p["w_q"], p["w_s"])
-        elif mode == "pallas":
-            from apertis_llm_tpu.ops.pallas.quant_matmul import quant_matmul
-
-            y = quant_matmul(x, p["w_q"], p["w_s"])
-        else:
-            y = x @ (p["w_q"].astype(x.dtype) * p["w_s"].astype(x.dtype))
+            y = x @ (w_q.astype(x.dtype) * p["w_s"].astype(x.dtype))
     else:
         y = x @ p["w"]
     if "b" in p:
         y = y + p["b"]
     return y
-
-
-def _maybe_ln_quant(norm_p: Params, x: jnp.ndarray, eps: float,
-                    consumers) -> Tuple[Optional[jnp.ndarray],
-                                        Optional[Tuple]]:
-    """Fused norm + per-row int8 quantize for the serving full-sequence path.
-
-    When every consuming projection is int8-quantized and the token count
-    saturates the MXU, the XLA lowering of norm -> absmax -> round/clip
-    runs ~3 separate HBM passes over the (tokens, H) activation (profiled
-    ~3.7 ms/layer at the 1.5B b256 TTFT shapes); the fused kernel
-    (ops/pallas/ln_quant.py) does it in one read. Returns
-    ``(normed, None)`` on the plain path or ``(None, (x_q, x_s))`` fused —
-    consumers feed the pair to :func:`_linear_pre_q`."""
-    from apertis_llm_tpu.parallel.context import current as _parallel_current
-
-    rows = x.size // x.shape[-1]
-    lnq = os.environ.get("APERTIS_LN_QUANT", "1")
-    # 'force' engages off-TPU / at any row count (interpret-mode kernel) so
-    # tests can pin the fused full-forward against the unfused path on CPU.
-    if (((_on_tpu() and rows >= 512) or lnq == "force")
-            and _quant_mode() in ("auto", "dyn")
-            and all(c is not None and ("w_q" in c or "w_q4" in c)
-                    for c in consumers)
-            and _parallel_current().mesh is None
-            and lnq != "0"):
-        from apertis_llm_tpu.ops.pallas.ln_quant import ln_quantize
-
-        if "scale" in norm_p:
-            q, s = ln_quantize(x, norm_p["scale"], None, eps=eps, rms=True)
-        else:
-            q, s = ln_quantize(x, norm_p["w"], norm_p["b"], eps=eps,
-                               rms=False)
-        return None, (q, s)
-    return _apply_norm(norm_p, x, eps), None
-
-
-def _linear_pre_q(p: Params, x_q: jnp.ndarray, x_s: jnp.ndarray,
-                  out_dtype) -> jnp.ndarray:
-    """int8 matmul with PRE-quantized activations — the same math as
-    ops/pallas/quant_matmul.quant_matmul_dyn_xla after its quantize_rows,
-    so fused-LN callers produce identical outputs to the unfused path.
-    int4-packed weights unpack in-graph (the int8 activations feed the
-    same integer dot)."""
-    if "w_q4" in p:
-        from apertis_llm_tpu.models.quantize import unpack_int4
-
-        w_q = unpack_int4(p["w_q4"], p.get("w_sh"))
-    else:
-        w_q = p["w_q"]
-    acc = jax.lax.dot_general(
-        x_q, w_q, (((x_q.ndim - 1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)
-    y = (acc.astype(jnp.float32) * x_s
-         * p["w_s"].reshape(1, -1).astype(jnp.float32)).astype(out_dtype)
-    if "b" in p:
-        y = y + p["b"]
-    return y
-
-
-@functools.lru_cache(maxsize=1)
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
-def _flash_eligible(config: ApertisConfig, seq_len: int, head_dim: int) -> bool:
-    """Static gate for the fused attention kernel: user-enabled, running on
-    TPU, lane-aligned head dim, and long enough that the kernel beats plain
-    XLA attention (the kernel itself pads any length to its block size, so —
-    like the reference's flash path, core.py:754-759 — there is no
-    divisibility requirement)."""
-    if not config.use_flash_attention:
-        return False
-    if seq_len < 128 or head_dim % 8 != 0 or head_dim > 256:
-        return False
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
 
 
 def _dropout(rng: Optional[jax.Array], x: jnp.ndarray, rate: float, training: bool) -> jnp.ndarray:
@@ -332,13 +182,16 @@ def _mha_full(
 
         ctx = ring_attention(qh, kh, vh, sp.mesh, sp.sp_axis, causal=True,
                              kv_valid=cp_kv_valid, batch_axis=sp.batch_axis)
-    elif bias is None and _flash_eligible(config, l, head_dim):
-        # Fused Pallas kernel: same gating as the reference's flash path —
-        # enabled, no padding mask, no attention-probs output
-        # (reference: core.py:731-740).
-        from apertis_llm_tpu.ops.pallas.flash_attention import flash_attention
-
-        ctx = flash_attention(qh, kh, vh, True)
+    elif bias is None and config.use_flash_attention:
+        # Fused attention, gated like the reference's flash path: enabled,
+        # no padding mask, no attention-probs output (core.py:731-740).
+        # cuDNN's fused kernel on the GPU (backend.py), XLA's elsewhere.
+        ctx = jax.nn.dot_product_attention(
+            qh.transpose(0, 2, 1, 3), kh.transpose(0, 2, 1, 3),
+            vh.transpose(0, 2, 1, 3), is_causal=True,
+            implementation=backend.fused_attention_implementation(
+                qh.dtype, l),
+        ).transpose(0, 2, 1, 3)
     else:
         ctx = attn_ops.mha(qh, kh, vh, bias=bias, causal=True)
     if training and config.attention_probs_dropout_prob > 0 and rng is not None:
@@ -380,13 +233,11 @@ def _ssm_compute_params(lp: Params, config: ApertisConfig, x_act: jnp.ndarray):
 def _ssm_full(
     lp: Params,
     config: ApertisConfig,
-    x: Optional[jnp.ndarray],  # (B, L, D) pre-normed (None with x_quant)
+    x: jnp.ndarray,  # (B, L, D) pre-normed
     *,
     want_cache: bool,
     seq_mask: Optional[jnp.ndarray] = None,   # (B, L) 1 = real token
     seq_lens: Optional[jnp.ndarray] = None,   # (B,) real lengths (for cache)
-    x_quant: Optional[Tuple] = None,          # fused-LN (x_q, x_s) pair
-    out_dtype=None,
 ):
     """Selective-SSM mixer over a full sequence.
 
@@ -397,16 +248,10 @@ def _ssm_full(
     reproduces the reference exactly (which ignores the attention mask,
     core.py:356-401).
     """
-    if x_quant is not None:
-        x_q, x_s = x_quant
-        b, l, _ = x_q.shape
-        x_proj = _linear_pre_q(lp["in_proj_x"], x_q, x_s, out_dtype)
-        z = _linear_pre_q(lp["in_proj_z"], x_q, x_s, out_dtype)
-    else:
-        b, l, _ = x.shape
-        x_proj = _linear(lp["in_proj_x"], x)              # (B, L, d_inner)
-        z = _linear(lp["in_proj_z"], x)
-    dtype = x.dtype if x is not None else jnp.dtype(out_dtype)
+    b, l, _ = x.shape
+    x_proj = _linear(lp["in_proj_x"], x)                  # (B, L, d_inner)
+    z = _linear(lp["in_proj_z"], x)
+    dtype = x.dtype
     d_inner = config.ssm_d_inner
     k = config.ssm_conv_kernel
     x_conv = ssm_ops.depthwise_causal_conv(x_proj, lp["conv"]["w"], lp["conv"]["b"])
@@ -469,35 +314,12 @@ def _ffn(
     *,
     training: bool,
     rng: Optional[jax.Array],
-    fat_stack: Optional[Params] = None,  # layer-stacked MoE fat tensors
-    layer_idx=None,                      # int32 index into fat_stack
-    x_quant: Optional[Tuple] = None,     # fused-LN (x_q, x_s) of the input
-    out_dtype=None,
-    dense_stack: Optional[Params] = None,  # layer-stacked dense w1/w2 (int8)
 ):
-    eps = config.layer_norm_eps
     zero = jnp.zeros((), jnp.float32)
-    # Fused-LN serving path: run the FFN on (tokens, H) 2D shapes. With the
-    # (B, L) split present, XLA lays the GEMM1 epilogue chain out L-major
-    # ({2,0,1}) and pays a full relayout copy of the int8 hidden before
-    # GEMM2 (profiled 1.8 ms/layer at the 1.5B b256 prefill); 2D shapes
-    # admit only {1,0} and the copy disappears.
-    if x_quant is not None:
-        lead = x_quant[0].shape[:-1]
-        x_quant = (x_quant[0].reshape(-1, x_quant[0].shape[-1]),
-                   x_quant[1].reshape(-1, 1))
-
-        def unflatten(t):
-            return t.reshape(*lead, t.shape[-1])
+    eps = config.layer_norm_eps
     if config.use_swiglu:
-        if x_quant is not None:
-            x_q, x_s = x_quant
-            h = (silu(_linear_pre_q(lp["w_gate"], x_q, x_s, out_dtype))
-                 * _linear_pre_q(lp["w_up"], x_q, x_s, out_dtype))
-            out = unflatten(_linear(lp["w_down"], h))
-        else:
-            h = silu(_linear(lp["w_gate"], x)) * _linear(lp["w_up"], x)
-            out = _linear(lp["w_down"], h)
+        h = silu(_linear(lp["w_gate"], x)) * _linear(lp["w_up"], x)
+        out = _linear(lp["w_down"], h)
         out = _dropout(rng, out, config.hidden_dropout_prob, training)
         return out, zero, zero
     if config.use_expert_system and config.num_experts > 0:
@@ -548,90 +370,26 @@ def _ffn(
                 capacity=capacity, active_mask=active)
         elif s <= max(config.num_experts, config.moe_dense_threshold_tokens):
             # Small token counts (decode steps): every expert's weights come
-            # off HBM regardless of routing, so the dense all-expert combine
-            # is equally memory-bound while skipping the per-layer
+            # off device memory regardless of routing, so the dense
+            # all-expert combine is equally memory-bound while skipping the
             # argsort/scatter/gather of the ragged path entirely.
-            if not training and (fat_stack is not None
-                                 or "fat" in lp["experts"]):
-                # Combine-folded two-fat-2D-GEMM form (models/moe_fuse.py),
-                # attached by the inference engine at load time. Default on
-                # TPU is the fused Pallas kernel (hidden tile never leaves
-                # VMEM); APERTIS_MOE_FUSED=fat selects the plain-XLA fat
-                # GEMMs (same weights, hidden activations round-trip HBM),
-                # which is also the off-TPU default (the kernel would run
-                # in interpret mode there — covered by direct tests).
-                mode = os.environ.get("APERTIS_MOE_FUSED", "fatk")
-                if (mode == "fat" or (mode == "fatk" and not _on_tpu())) \
-                        and "fat" in lp["experts"]:
-                    out = moe_ops.moe_dense_fat(
-                        flat, routing, lp["experts"], config.hidden_act, eps,
-                        active_mask=active)
-                else:
-                    out = moe_ops.moe_dense_fat_kernel(
-                        flat, routing, lp["experts"], config.hidden_act, eps,
-                        active_mask=active, fat_stack=fat_stack,
-                        layer_idx=layer_idx)
-            elif not training and "fused" in lp["experts"]:
-                # Per-expert VMEM-resident Pallas kernel (kept selectable:
-                # measured ~equal to the XLA dense path at 1.5B shapes).
-                out = moe_ops.moe_dense_fused(
+            if not training and "fat" in lp["experts"]:
+                # Combine-folded two-fat-GEMM form (models/moe_fuse.py),
+                # attached by the inference engine at load time.
+                out = moe_ops.moe_dense_fat(
                     flat, routing, lp["experts"], config.hidden_act, eps,
                     active_mask=active)
             else:
                 out = moe_ops.moe_dense(
                     flat, routing, lp["experts"], config.hidden_act, eps,
                     active_mask=active)
-        elif (not training and fat_stack is not None
-              and layer_idx is not None):
-            # Prefill grouped path (ops/pallas/moe_grouped.py): tile-padded
-            # expert-sorted dispatch through the fused grouped-FFN kernel —
-            # replaces ragged_dot (a custom-call XLA can't fuse operands or
-            # epilogues into; the scanned expert stacks were measured
-            # materialising ~10 ms/layer of weight copies at 1.5B b256).
-            # The caller hoists the fat stack + passes the layer index;
-            # eligibility is checked at hoist time (grouped_eligible).
-            out = moe_ops.moe_grouped_fat(
-                flat, routing, lp["experts"], config.hidden_act, eps,
-                fat_stack, layer_idx, active_mask=active)
         else:
             out = moe_ops.moe_ragged(
                 flat, routing, lp["experts"], config.hidden_act, eps,
                 active_mask=active)
         return out.reshape(b, l, d), routing.lb_loss, routing.rz_loss
     # dense FFN: Linear -> act -> Dropout -> Linear
-    if dense_stack is not None and not training and x_quant is None:
-        # Fused decode path: the whole FFN (int8 GEMM1 -> act -> requantize
-        # -> int8 GEMM2) runs per intermediate tile in VMEM, each weight
-        # matrix streaming from HBM exactly once (ops/pallas/ffn_fused.py;
-        # hoisted + scalar-prefetch-indexed by decode_step, the
-        # moe_ffn.py lesson about dynamic-slice copies of pallas operands).
-        from apertis_llm_tpu.ops.pallas.ffn_fused import ffn_decode_fused
-        from apertis_llm_tpu.ops.pallas.quant_matmul import quantize_rows
-
-        lead = x.shape[:-1]
-        x2 = x.reshape(-1, x.shape[-1])
-        w1, w2 = dense_stack["w1"], dense_stack["w2"]
-        if "w" in w1:
-            y = ffn_decode_fused(
-                x2, None, w1["w"], None, w1["b"], w2["w"], None, w2["b"],
-                layer_idx=layer_idx, out_dtype=x.dtype,
-                hidden_act=config.hidden_act)
-        else:
-            xq, xs = quantize_rows(x2)
-            int4 = "w_q4" in w1
-            y = ffn_decode_fused(
-                xq, xs, w1["w_q4" if int4 else "w_q"], w1["w_s"], w1["b"],
-                w2["w_q4" if int4 else "w_q"], w2["w_s"], w2["b"],
-                layer_idx=layer_idx, out_dtype=x.dtype,
-                hidden_act=config.hidden_act, int4=int4,
-                w1_sh=w1.get("w_sh"), w2_sh=w2.get("w_sh"))
-        return y.reshape(*lead, y.shape[-1]), zero, zero
     act = get_activation(config.hidden_act)
-    if x_quant is not None:
-        x_q, x_s = x_quant
-        h = act(_linear_pre_q(lp["w1"], x_q, x_s, out_dtype))
-        h = _dropout(rng, h, config.hidden_dropout_prob, training)
-        return unflatten(_linear(lp["w2"], h)), zero, zero
     h = act(_linear(lp["w1"], x))
     h = _dropout(rng, h, config.hidden_dropout_prob, training)
     return _linear(lp["w2"], h), zero, zero
@@ -657,42 +415,26 @@ def _layer_full(
     seq_mask: Optional[jnp.ndarray] = None,
     seq_lens: Optional[jnp.ndarray] = None,
     cp_kv_valid: Optional[jnp.ndarray] = None,
-    fat_stack: Optional[Params] = None,   # hoisted MoE fat stack (L, ...)
-    layer_idx=None,                       # int32 index into the stack
 ):
     rngs = jax.random.split(rng, 4) if rng is not None else [None] * 4
     eps = config.layer_norm_eps
 
+    normed = _apply_norm(lp["attn"]["pre_norm"], h, eps)
     if config.attention_type == "selective_ssm":
-        # Serving-int8 full-sequence path: fuse the pre-norm with the
-        # activation quantize both projections consume (_maybe_ln_quant).
-        normed, x_quant = _maybe_ln_quant(
-            lp["attn"]["pre_norm"], h, eps,
-            (lp["attn"].get("in_proj_x"), lp["attn"].get("in_proj_z")))
         attn_out, cache = _ssm_full(lp["attn"], config, normed,
                                     want_cache=want_cache,
-                                    seq_mask=seq_mask, seq_lens=seq_lens,
-                                    x_quant=x_quant, out_dtype=h.dtype)
+                                    seq_mask=seq_mask, seq_lens=seq_lens)
         probs = None
     else:
-        normed = _apply_norm(lp["attn"]["pre_norm"], h, eps)
         attn_out, cache, probs = _mha_full(
             lp["attn"], config, normed, bias, pos_ids, cos_t, sin_t,
             training=training, rng=rngs[0], want_cache=want_cache,
             want_probs=want_probs, cp_kv_valid=cp_kv_valid)
     h = h + _dropout(rngs[1], attn_out, config.hidden_dropout_prob, training)
 
-    fp = lp["ffn"]
-    if config.use_swiglu:
-        ffn_consumers = (fp.get("w_gate"), fp.get("w_up"))
-    elif config.use_expert_system and config.num_experts > 0:
-        ffn_consumers = (None,)   # the router reads the normed tensor
-    else:
-        ffn_consumers = (fp.get("w1"),)
-    normed, ffn_quant = _maybe_ln_quant(fp["pre_norm"], h, eps, ffn_consumers)
-    ffn_out, lb, rz = _ffn(fp, config, normed, training=training,
-                           rng=rngs[2], x_quant=ffn_quant, out_dtype=h.dtype,
-                           fat_stack=fat_stack, layer_idx=layer_idx)
+    normed = _apply_norm(lp["ffn"]["pre_norm"], h, eps)
+    ffn_out, lb, rz = _ffn(lp["ffn"], config, normed, training=training,
+                           rng=rngs[2])
     h = h + _dropout(rngs[3], ffn_out, config.hidden_dropout_prob, training)
     return h, cache, lb, rz, probs
 
@@ -918,38 +660,11 @@ def init_cache(config: ApertisConfig, batch_size: int, max_length: Optional[int]
                 jnp.float32),
         }
     heads, head_dim = config.num_attention_heads, config.head_dim
-    if _paired_kv_layout(config, max_length):
-        # Flat KV layout for the fused decode-attention kernel
-        # (ops/pallas/mha_step.py): slots store the head-flat (H*Dh)
-        # projection row directly, so the multi-GB cache carries ZERO lane
-        # padding in HBM whenever H*Dh is 128-aligned (head_dim < 128
-        # would otherwise store half padding under the (8, 128) tile) and
-        # the kernel computes all heads' scores in one MXU dot.
-        # Under APERTIS_QUANT_KV=1 the flat cache stores int8 values with
-        # per-(head, slot) f32 scale stacks — half the step's dominant
-        # HBM read again; the kernel dequantizes in VMEM.
-        d_flat = heads * head_dim
-        if _quant_kv():
-            return {
-                "k": jnp.zeros(
-                    (nl, batch_size, max_length, d_flat), jnp.int8),
-                "k_ps": jnp.zeros(
-                    (nl, batch_size, heads, max_length), jnp.float32),
-                "v": jnp.zeros(
-                    (nl, batch_size, max_length, d_flat), jnp.int8),
-                "v_ps": jnp.zeros(
-                    (nl, batch_size, heads, max_length), jnp.float32),
-            }
-        return {
-            "k": jnp.zeros((nl, batch_size, max_length, d_flat), dtype),
-            "v": jnp.zeros((nl, batch_size, max_length, d_flat), dtype),
-        }
     if _quant_kv():
         # int8 KV serving cache (APERTIS_QUANT_KV=1): values quantize
         # symmetrically per (layer, row, head, slot) with the scale over the
-        # head_dim lane — HALVES the MHA decode step's dominant HBM term
-        # (the full-cache attention read) and the cache's HBM footprint,
-        # doubling servable batch x context. Scales dequantize exactly into
+        # head_dim axis. This halves the MHA decode step's largest memory
+        # read (the whole cache) and the cache's footprint. Scales dequantize exactly into
         # the score/context contractions (ops/attention). The in-flight
         # token's K/V stay bf16 through the self-term; only the persisted
         # slots are quantized.
@@ -967,29 +682,6 @@ def init_cache(config: ApertisConfig, batch_size: int, max_length: Optional[int]
         "k": jnp.zeros((nl, batch_size, heads, max_length, head_dim), dtype),
         "v": jnp.zeros((nl, batch_size, heads, max_length, head_dim), dtype),
     }
-
-
-def _paired_kv_layout(config: ApertisConfig, max_length: int) -> bool:
-    """Whether the MHA decode cache uses the head-flat (nl, B, L, H*Dh)
-    layout consumed by the fused Pallas step kernel."""
-    from apertis_llm_tpu.ops.pallas.mha_step import (
-        pair_cache_fits, pair_kv_enabled)
-
-    return (pair_kv_enabled(config)
-            and pair_cache_fits(config, max_length, quant=_quant_kv()))
-
-
-def _cache_is_paired(config: ApertisConfig, cache: Params) -> bool:
-    """Detect the flat layout from the allocated cache itself (the env
-    gate must not flip between init_cache and prefill/decode within one
-    served program): the flat cache is 4-D (nl, B, L, H*Dh) where the
-    head-major layouts are 5-D."""
-    if config.attention_type == "selective_ssm" or "k_s" in cache:
-        return False
-    k = cache["k"]
-    if k.ndim != 4:
-        return False
-    return _paired_kv_layout(config, k.shape[2])
 
 
 def _quant_kv() -> bool:
@@ -1034,43 +726,14 @@ def prefill(
     seq_mask = attention_mask
     seq_lens = jnp.sum(attention_mask.astype(jnp.int32), axis=1)
 
-    # Hoist the MoE fat stack OUT of the scanned tree for the grouped
-    # prefill kernel (scan xs would dynamic-slice a full weight copy per
-    # layer — ragged_dot's measured pathology); the kernel scalar-
-    # prefetches the layer index into the resident (L, ...) stack.
-    layers = params["layers"]
-    fat_pre = None
-    if config.use_expert_system and config.num_experts > 0:
-        from apertis_llm_tpu.ops.pallas.moe_grouped import grouped_eligible
-
-        experts = layers.get("ffn", {}).get("experts", {})
-        fat = experts.get("fat") if isinstance(experts, dict) else None
-        if fat is not None and grouped_eligible(fat, config.num_experts):
-            # Pre-shape the scale/bias stacks to the kernel's (L, 1, ·)
-            # operand forms HERE, outside the layer scan: reshapes inside
-            # the scan body feed a custom-call, and XLA materialises the
-            # (L, 1, E*I) f32 copies per iteration instead of hoisting.
-            nl = config.num_hidden_layers
-            fat_pre = dict(fat)
-            fat_pre["b1t"] = fat["b1t"].reshape(nl, 1, -1)
-            fat_pre["w1t_s"] = fat["w1t_s"].reshape(nl, 1, -1)
-            fat_pre["w2t_s"] = fat["w2t_s"].reshape(nl, 1, -1)
-            layers = dict(layers)
-            layers["ffn"] = dict(layers["ffn"])
-            layers["ffn"]["experts"] = {
-                k: v for k, v in experts.items() if k != "fat"}
-
-    def body(h, xs):
-        lp, idx = xs
+    def body(h, lp):
         h, layer_cache, _, _, _ = _layer_full(
             lp, config, h, bias, pos_ids, cos_t, sin_t,
             training=False, rng=None, want_cache=True,
-            seq_mask=seq_mask, seq_lens=seq_lens,
-            fat_stack=fat_pre, layer_idx=idx)
+            seq_mask=seq_mask, seq_lens=seq_lens)
         return h, layer_cache
 
-    h, stacked_cache = jax.lax.scan(
-        body, embeds, (layers, jnp.arange(config.num_hidden_layers)))
+    h, stacked_cache = jax.lax.scan(body, embeds, params["layers"])
     h = _apply_norm(params["final_norm"], h, config.layer_norm_eps)
     h_text = h[:, num_img:, :] if num_img > 0 else h
     if logit_positions is not None:
@@ -1094,39 +757,6 @@ def prefill(
         }
     else:
         kc, vc = stacked_cache["k"], stacked_cache["v"]
-        if _cache_is_paired(config, cache):
-            from apertis_llm_tpu.ops.pallas.mha_step import (
-                pack_cache, quantize_heads)
-
-            kc, vc = pack_cache(kc), pack_cache(vc)   # (nl, B, L, H*Dh)
-            if "k_ps" in cache:
-                # int8 flat cache: quantize the prompt's K/V per
-                # (head, slot) on the way in; scales store head-major
-                # (nl, B, H, L) so the kernel's scale blocks stay compact.
-                kc, ks = quantize_heads(kc, config.head_dim)
-                vc, vs = quantize_heads(vc, config.head_dim)
-                ks, vs = jnp.moveaxis(ks, 3, 2), jnp.moveaxis(vs, 3, 2)
-                new_cache = {
-                    "k": jax.lax.dynamic_update_slice(
-                        cache["k"], kc, (0, 0, 0, 0)),
-                    "k_ps": jax.lax.dynamic_update_slice(
-                        cache["k_ps"], ks, (0, 0, 0, 0)),
-                    "v": jax.lax.dynamic_update_slice(
-                        cache["v"], vc, (0, 0, 0, 0)),
-                    "v_ps": jax.lax.dynamic_update_slice(
-                        cache["v_ps"], vs, (0, 0, 0, 0)),
-                }
-            else:
-                new_cache = {
-                    "k": jax.lax.dynamic_update_slice(
-                        cache["k"], kc.astype(cache["k"].dtype),
-                        (0, 0, 0, 0)),
-                    "v": jax.lax.dynamic_update_slice(
-                        cache["v"], vc.astype(cache["v"].dtype),
-                        (0, 0, 0, 0)),
-                }
-            return PrefillOutput(logits, new_cache,
-                                 jnp.asarray(l_total, jnp.int32))
         # stacked (nl, B, H, L, Dh) -> write into preallocated ring at [0:L]
         new_cache = {
             "k": jax.lax.dynamic_update_slice(
@@ -1172,220 +802,27 @@ def decode_step(
             config.hidden_size, config.max_position_embeddings, config.rope_theta)
 
     if not is_ssm:
-        # Flat (nl, B, L, H*Dh) fused-kernel layout vs head-major
-        # (nl, B, H, L, Dh): the slot axis moves.
-        max_len = cache["k"].shape[2 if cache["k"].ndim == 4 else 3]
+        max_len = cache["k"].shape[3]
         if attn_mask_row is None:
             valid = jnp.arange(max_len)[None, :] <= t
             valid = jnp.broadcast_to(valid, (b, max_len))
         else:
             valid = attn_mask_row > 0
-
-    # Hoist the layer-stacked MoE fat tensors OUT of the scanned tree when
-    # the fused fat kernel will consume them: scan would dynamic-slice them
-    # per layer, and XLA materialises a full copy of both expert matrices
-    # for every pallas operand (~47 us/layer profiled at 1.5B shapes). The
-    # kernel instead scalar-prefetches the layer index into the full stack.
-    layers = params["layers"]
-    fat_stack = None
-    experts = layers.get("ffn", {}).get("experts", {}) if isinstance(
-        layers.get("ffn"), dict) else {}
-    if ("fat" in experts
-            and (_on_tpu()
-                 # interpret-mode testing of the fused-ssm MoE chain on CPU
-                 or os.environ.get("APERTIS_SSM_STEP") == "force")
-            and os.environ.get("APERTIS_MOE_FUSED", "fatk") == "fatk"):
-        fat_stack = experts["fat"]
-        layers = dict(layers)
-        layers["ffn"] = dict(layers["ffn"])
-        layers["ffn"]["experts"] = {
-            k: v for k, v in experts.items() if k != "fat"}
-    # Fused SSM mixer step (ops/pallas/ssm_step.py): the attached weight
-    # pack (models/ssm_fuse.py, engine-built) is ALWAYS popped from the
-    # scanned tree — its leaves would otherwise be sliced per layer — and
-    # consumed via a scalar-prefetched layer index when the dispatch gate
-    # opens.
-    ssm_stack = None
-    ssm_rms = False
-    attn_p = layers.get("attn", {}) if isinstance(
-        layers.get("attn"), dict) else {}
-    if "fused" in attn_p:
-        from apertis_llm_tpu.ops.pallas.ssm_step import ssm_step_fused_enabled
-        from apertis_llm_tpu.parallel.context import current as _par_cur
-
-        layers = dict(layers)
-        layers["attn"] = {k: v for k, v in attn_p.items() if k != "fused"}
-        if is_ssm and _par_cur().mesh is None and ssm_step_fused_enabled(b):
-            ssm_stack = attn_p["fused"]
-            ssm_rms = "scale" in attn_p.get("pre_norm", {})
-    # FFN epilogue folding (pre-norm + quantize [+ router] inside the SSM
-    # kernel): "dense" feeds the fused dense-FFN kernel directly; "moe"
-    # feeds the fat MoE kernel with in-kernel top-2 combine weights.
-    ffn_mode = "none"
-    if ssm_stack is not None and "fnorm_w" in ssm_stack:
-        if (config.use_expert_system and config.num_experts > 0
-                and fat_stack is not None and "router_w" in ssm_stack
-                and config.experts_per_token == 2
-                and b <= config.moe_dense_threshold_tokens):
-            ffn_mode = "moe"
-    # Same hoist for the DENSE int8 FFN: the fused decode kernel
-    # (ops/pallas/ffn_fused.py) consumes the layer-stacked w1/w2 via a
-    # scalar-prefetched layer index instead of scan-sliced copies.
-    dense_stack = None
-    if (not config.use_swiglu
-            and not (config.use_expert_system and config.num_experts > 0)):
-        from apertis_llm_tpu.ops.pallas.ffn_fused import fused_eligible
-        from apertis_llm_tpu.parallel.context import current as _par_current
-
-        ffn_p = layers.get("ffn", {}) if isinstance(
-            layers.get("ffn"), dict) else {}
-        # The attach-time int4 decode pack (models/quantize.attach_int4_ffn,
-        # APERTIS_QUANT_BITS=4) is ALWAYS removed from the scanned tree —
-        # scan xs would slice it per layer — and preferred over the int8
-        # stacks when the fused kernel dispatch accepts it.
-        w4 = ffn_p.get("w4")
-        if w4 is not None:
-            layers = dict(layers)
-            layers["ffn"] = {k: v for k, v in layers["ffn"].items()
-                             if k != "w4"}
-            ffn_p = layers["ffn"]
-        if _par_current().mesh is None:
-            if w4 is not None and fused_eligible(w4["w1"], w4["w2"], b):
-                dense_stack = w4
-            elif fused_eligible(ffn_p.get("w1"), ffn_p.get("w2"), b):
-                dense_stack = {"w1": ffn_p["w1"], "w2": ffn_p["w2"]}
-        if dense_stack is not None:
-            if "w1" in dense_stack and dense_stack is not w4:
-                layers = dict(layers)
-                layers["ffn"] = {k: v for k, v in layers["ffn"].items()
-                                 if k not in ("w1", "w2")}
-            if (ssm_stack is not None and "fnorm_w" in ssm_stack
-                    # pack kinds must agree: a bf16 mixer pack emits a bf16
-                    # FFN input, an int8 pack emits (x_q, x_s) — mixing
-                    # layouts would hand the FFN kernel the wrong operands.
-                    and (("inx_w" in ssm_stack)
-                         == ("w" in dense_stack["w1"]))):
-                ffn_mode = "dense"
-
-    if not is_ssm:
-        # MHA: the decode step's ONLY O(cache) HBM traffic should be
-        # attention's unavoidable read of the filled K/V slots. The original
-        # structure (stacked cache as scan xs, updated per-layer caches
-        # re-stacked as scan ys) rewrote the ENTIRE cache allocation every
-        # decode step — at the 1.5B b64 serving shapes ~7 GB of write per
-        # token on top of the ~7 GB read, measured as the round-4 849 tok/s
-        # (75.4 ms/step) pathology. Here the cache is decoupled from the
-        # scan: each layer READS its old-cache slice (scan xs), attends to
-        # the brand-new token via an explicit self-term (the old cache's
-        # slot ``t`` is stale and masked out), and emits its new K/V slot
-        # as a tiny (B, H, 1, Dh) scan ys; ONE dynamic_update_slice after
-        # the scan writes every layer's slot column in place.
+        # The cache is read, never rewritten, inside the layer scan: each
+        # layer reads its old-cache slice (scan xs), attends to the new
+        # token through an explicit self-term (the old cache's slot ``t``
+        # is stale and masked out), and emits its new K/V slot as a small
+        # (B, H, 1, Dh) scan output. One dynamic_update_slice after the
+        # scan writes every layer's slot column in place, so a step moves
+        # O(cache) bytes once (the attention read), not three times.
         valid_cache = valid & (jnp.arange(max_len)[None, :] != t)
         quant_kv = "k_s" in cache
 
-        if _cache_is_paired(config, cache):
-            # Fused decode-attention path (ops/pallas/mha_step.py): the
-            # pair-packed cache is hoisted OUT of the scanned tree (the
-            # fat_stack lesson — scan xs would dynamic-slice a full copy
-            # per layer); the kernel scalar-prefetches the layer index
-            # into the full stack and fuses score/mask/softmax/context
-            # plus the fresh token's self-term in one VMEM pass.
-            from apertis_llm_tpu.ops.pallas.mha_step import NEG as _MHA_NEG
-
-            bias_t = jnp.where(valid_cache, 0.0,
-                               _MHA_NEG).astype(jnp.float32)  # (B, Lmax)
-            k_full, v_full = cache["k"], cache["v"]
-            kv_q = "k_ps" in cache
-            ks_full = cache["k_ps"] if kv_q else None
-            vs_full = cache["v_ps"] if kv_q else None
-            # int8 serving tree: fused LN+quantize feeds int8 x int8
-            # projection dots (see _mha_decode_step_paired's rationale).
-            attn_tree = layers.get("attn", {})
-            mha_q8 = all("w_q" in attn_tree.get(k2, {})
-                         for k2 in ("q", "k", "v", "o"))
-
-            def body_mha_paired(hc, xs):
-                lp, li = xs
-                if mha_q8:
-                    if os.environ.get("APERTIS_MHA_LNQ", "xla") == "xla":
-                        # Decode-row LN+quantize in plain XLA: at 64-256
-                        # rows the fused ln_quant Pallas call is overhead-
-                        # bound (xplane: 64 us/call on a 311 KB block,
-                        # 1.29 ms of the b64 step across 20 layers), and
-                        # XLA fuses the chain into neighbours instead.
-                        from apertis_llm_tpu.ops.pallas.quant_matmul import (
-                            quantize_rows)
-
-                        normed = _apply_norm(lp["attn"]["pre_norm"], hc, eps)
-                        xq8, xs8 = quantize_rows(normed[:, 0, :])
-                    else:
-                        from apertis_llm_tpu.ops.pallas.ln_quant import (
-                            ln_quantize)
-
-                        pre = lp["attn"]["pre_norm"]
-                        if "scale" in pre:
-                            xq8, xs8 = ln_quantize(hc[:, 0, :], pre["scale"],
-                                                   None, eps=eps, rms=True)
-                        else:
-                            xq8, xs8 = ln_quantize(hc[:, 0, :], pre["w"],
-                                                   pre["b"], eps=eps,
-                                                   rms=False)
-                    attn_out, kp, vp = _mha_decode_step_paired(
-                        lp["attn"], config, None, k_full, v_full, pos,
-                        bias_t, cos_t, sin_t, li, x_quant=(xq8, xs8),
-                        ks_stack=ks_full, vs_stack=vs_full)
-                else:
-                    normed = _apply_norm(lp["attn"]["pre_norm"], hc, eps)
-                    attn_out, kp, vp = _mha_decode_step_paired(
-                        lp["attn"], config, normed, k_full, v_full, pos,
-                        bias_t, cos_t, sin_t, li,
-                        ks_stack=ks_full, vs_stack=vs_full)
-                hc = hc + attn_out
-                normed = _apply_norm(lp["ffn"]["pre_norm"], hc, eps)
-                ffn_out, _, _ = _ffn(
-                    lp["ffn"], config, normed, training=False, rng=None,
-                    fat_stack=fat_stack, layer_idx=li,
-                    dense_stack=dense_stack)
-                return hc + ffn_out, (kp, vp)
-
-            arange_l = jnp.arange(config.num_hidden_layers, dtype=jnp.int32)
-            h, (kp_stack, vp_stack) = jax.lax.scan(
-                body_mha_paired, h, (layers, arange_l),
-                unroll=_decode_unroll(config.num_hidden_layers))
-            if kv_q:
-                from apertis_llm_tpu.ops.pallas.mha_step import quantize_heads
-
-                kq_st, ks_st = quantize_heads(kp_stack,
-                                              config.head_dim)  # (nl, B, ·)
-                vq_st, vs_st = quantize_heads(vp_stack, config.head_dim)
-                new_cache = {
-                    "k": jax.lax.dynamic_update_slice(
-                        cache["k"], kq_st[:, :, None, :], (0, 0, t, 0)),
-                    "k_ps": jax.lax.dynamic_update_slice(
-                        cache["k_ps"], ks_st[:, :, :, None], (0, 0, 0, t)),
-                    "v": jax.lax.dynamic_update_slice(
-                        cache["v"], vq_st[:, :, None, :], (0, 0, t, 0)),
-                    "v_ps": jax.lax.dynamic_update_slice(
-                        cache["v_ps"], vs_st[:, :, :, None], (0, 0, 0, t)),
-                }
-            else:
-                new_cache = {
-                    "k": jax.lax.dynamic_update_slice(
-                        cache["k"], kp_stack[:, :, None, :].astype(
-                            cache["k"].dtype), (0, 0, t, 0)),
-                    "v": jax.lax.dynamic_update_slice(
-                        cache["v"], vp_stack[:, :, None, :].astype(
-                            cache["v"].dtype), (0, 0, t, 0)),
-                }
-            h = _apply_norm(params["final_norm"], h, eps)
-            logits = _lm_head(params, h)[:, 0, :]
-            return logits, new_cache
-
         def body_mha(hc, xs):
             if quant_kv:
-                lp, k_l, ks_l, v_l, vs_l, li = xs
+                lp, k_l, ks_l, v_l, vs_l = xs
             else:
-                lp, k_l, v_l, li = xs
+                lp, k_l, v_l = xs
                 ks_l = vs_l = None
             normed = _apply_norm(lp["attn"]["pre_norm"], hc, eps)
             attn_out, kh, vh = _mha_decode_step(
@@ -1394,14 +831,12 @@ def decode_step(
             hc = hc + attn_out
             normed = _apply_norm(lp["ffn"]["pre_norm"], hc, eps)
             ffn_out, _, _ = _ffn(lp["ffn"], config, normed, training=False,
-                                 rng=None, fat_stack=fat_stack, layer_idx=li,
-                                 dense_stack=dense_stack)
+                                 rng=None)
             return hc + ffn_out, (kh, vh)
 
-        arange_l = jnp.arange(config.num_hidden_layers, dtype=jnp.int32)
-        xs_scan = ((layers, cache["k"], cache["k_s"], cache["v"],
-                    cache["v_s"], arange_l) if quant_kv
-                   else (layers, cache["k"], cache["v"], arange_l))
+        xs_scan = ((params["layers"], cache["k"], cache["k_s"], cache["v"],
+                    cache["v_s"]) if quant_kv
+                   else (params["layers"], cache["k"], cache["v"]))
         h, (kh_stack, vh_stack) = jax.lax.scan(
             body_mha, h, xs_scan,
             unroll=_decode_unroll(config.num_hidden_layers))
@@ -1432,81 +867,18 @@ def decode_step(
         return logits, new_cache
 
     def body(h, xs):
-        lp, layer_cache, li = xs
-        if ssm_stack is not None:
-            # Entire mixer (pre-norm .. out_proj + residual) in one kernel;
-            # with ffn_mode set it also emits the FFN's quantized input
-            # (+ MoE combine weights) so the FFN kernel chains directly.
-            from apertis_llm_tpu.ops.pallas.ssm_step import (
-                ssm_decode_step_fused)
-
-            ssm2 = layer_cache["ssm"].reshape(b, -1)
-            outs = ssm_decode_step_fused(
-                h[:, 0, :], layer_cache["conv"], ssm2, ssm_stack, li, eps,
-                ssm_rms, ffn_mode=ffn_mode)
-            h2, xp_new, ssm_new = outs[:3]
-            new_layer_cache = {
-                "conv": jnp.concatenate(
-                    [layer_cache["conv"][:, 1:, :], xp_new[:, None, :]],
-                    axis=1),
-                "ssm": ssm_new.reshape(layer_cache["ssm"].shape),
-            }
-            if ffn_mode == "dense":
-                from apertis_llm_tpu.ops.pallas.ffn_fused import (
-                    ffn_decode_fused)
-
-                w1, w2 = dense_stack["w1"], dense_stack["w2"]
-                if "w" in w1:
-                    # bf16 serving: the mixer kernel emitted the normed
-                    # bf16 FFN input directly (no activation quantization).
-                    y = ffn_decode_fused(
-                        outs[3], None, w1["w"], None, w1["b"],
-                        w2["w"], None, w2["b"],
-                        layer_idx=li, out_dtype=h2.dtype,
-                        hidden_act=config.hidden_act)
-                else:
-                    xq2, xs2 = outs[3], outs[4]
-                    i4 = "w_q4" in w1
-                    y = ffn_decode_fused(
-                        xq2, xs2, w1["w_q4" if i4 else "w_q"], w1["w_s"],
-                        w1["b"], w2["w_q4" if i4 else "w_q"], w2["w_s"],
-                        w2["b"], layer_idx=li, out_dtype=h2.dtype,
-                        hidden_act=config.hidden_act, int4=i4,
-                        w1_sh=w1.get("w_sh"), w2_sh=w2.get("w_sh"))
-                return (h2 + y)[:, None, :], new_layer_cache
-            if ffn_mode == "moe":
-                from apertis_llm_tpu.ops.pallas.moe_ffn import expert_ffn_fat
-
-                xq2, xs2, comb = outs[3], outs[4], outs[5]
-                i4 = "w1t_q4" in fat_stack
-                y = expert_ffn_fat(
-                    xq2, xs2, comb,
-                    fat_stack["w1t_q4" if i4 else "w1t_q"],
-                    fat_stack["w1t_s"], fat_stack["b1t"],
-                    fat_stack["w2t_q4" if i4 else "w2t_q"],
-                    fat_stack["w2t_s"],
-                    config.num_experts, layer_idx=li,
-                    out_dtype=jnp.float32, hidden_act=config.hidden_act,
-                    int4=i4, w1t_sh=fat_stack.get("w1t_sh"),
-                    w2t_sh=fat_stack.get("w2t_sh"))
-                y = y + comb @ lp["ffn"]["experts"]["b2"].astype(jnp.float32)
-                return (h2 + y.astype(h2.dtype))[:, None, :], new_layer_cache
-            h = h2[:, None, :]
-        else:
-            normed = _apply_norm(lp["attn"]["pre_norm"], h, eps)
-            attn_out, new_layer_cache = _ssm_decode_step(
-                lp["attn"], config, normed[:, 0, :], layer_cache)
-            h = h + attn_out[:, None, :]
+        lp, layer_cache = xs
+        normed = _apply_norm(lp["attn"]["pre_norm"], h, eps)
+        attn_out, new_layer_cache = _ssm_decode_step(
+            lp["attn"], config, normed[:, 0, :], layer_cache)
+        h = h + attn_out[:, None, :]
         normed = _apply_norm(lp["ffn"]["pre_norm"], h, eps)
         ffn_out, _, _ = _ffn(lp["ffn"], config, normed, training=False,
-                             rng=None, fat_stack=fat_stack, layer_idx=li,
-                             dense_stack=dense_stack)
-        h = h + ffn_out
-        return h, new_layer_cache
+                             rng=None)
+        return h + ffn_out, new_layer_cache
 
     h, new_cache = jax.lax.scan(
-        body, h, (layers, cache,
-                  jnp.arange(config.num_hidden_layers, dtype=jnp.int32)),
+        body, h, (params["layers"], cache),
         unroll=_decode_unroll(config.num_hidden_layers))
     h = _apply_norm(params["final_norm"], h, eps)
     logits = _lm_head(params, h)[:, 0, :]
@@ -1542,68 +914,6 @@ def _mha_decode_step(lp, config, x, k_l, v_l, pos, valid_cache, cos_t, sin_t,
         valid_cache, k_scale=k_scale, v_scale=v_scale)
     ctx = ctx.transpose(0, 2, 1, 3).reshape(b, 1, heads * head_dim)
     return _linear(lp["o"], ctx), kh, vh
-
-
-def _mha_decode_step_paired(lp, config, x, k_stack, v_stack, pos, bias_t,
-                            cos_t, sin_t, layer_idx, x_quant=None,
-                            ks_stack=None, vs_stack=None):
-    """Single-token MHA step over the head-flat cache via the fused
-    Pallas decode-attention kernel (ops/pallas/mha_step.py).
-
-    Projections + RoPE stay XLA (they are weight-bound); the attention
-    score/mask/softmax/context chain — the step's dominant HBM term, the
-    full-cache read — runs in one Pallas pass over the padding-free flat
-    layout. With ``x_quant`` (the fused-LN int8 activations from
-    the quantized serving tree) the four projections run as int8 x int8
-    MXU dots — at decode row counts XLA's weight-only lowering was
-    measured MATERIALISING dequantized bf16 copies of the K/V projection
-    matrices every layer step (1.6 ms of the round-4 10.2 ms b64 step),
-    which the pre-quantized dot avoids entirely. Returns
-    (attn_out, k_flat, v_flat) with the fresh slot's head-flat (B, D)
-    K/V for the caller's single post-scan slot-column write."""
-    from apertis_llm_tpu.ops.pallas.mha_step import mha_decode_ctx, pack_heads
-
-    out_dtype = jnp.dtype(config.dtype)
-    if x_quant is not None:
-        x_q, x_s = x_quant
-        b = x_q.shape[0]
-        if "qkv" in lp:
-            # Fused QKV stack (models/quantize.attach_qkv_mha): one int8
-            # dot + dequant epilogue; the split is a lane-aligned slice.
-            y = _linear_pre_q(lp["qkv"], x_q, x_s, out_dtype)
-            q, k, v = (z[:, None, :] for z in jnp.split(y, 3, axis=-1))
-        else:
-            q = _linear_pre_q(lp["q"], x_q, x_s, out_dtype)[:, None, :]
-            k = _linear_pre_q(lp["k"], x_q, x_s, out_dtype)[:, None, :]
-            v = _linear_pre_q(lp["v"], x_q, x_s, out_dtype)[:, None, :]
-    else:
-        b = x.shape[0]
-        q = _linear(lp["q"], x)
-        k = _linear(lp["k"], x)
-        v = _linear(lp["v"], x)
-    heads, head_dim = config.num_attention_heads, config.head_dim
-    if config.position_embedding_type == "rotary":
-        q = apply_rope(q, pos, cos_t, sin_t)
-        k = apply_rope(k, pos, cos_t, sin_t)
-    qp = pack_heads(q)                                    # (B, H*Dh)
-    kp = pack_heads(k)
-    vp = pack_heads(v)
-    if ks_stack is None:
-        # bf16 cache: the fresh pair column is written back verbatim.
-        kp = kp.astype(k_stack.dtype)
-        vp = vp.astype(v_stack.dtype)
-    ctx = mha_decode_ctx(qp.astype(out_dtype), k_stack, v_stack,
-                         kp.astype(out_dtype), vp.astype(out_dtype),
-                         bias_t, layer_idx, head_dim=head_dim,
-                         ks_stack=ks_stack, vs_stack=vs_stack)
-    ctx = ctx.reshape(b, 1, heads * head_dim)
-    if x_quant is not None:
-        from apertis_llm_tpu.ops.pallas.quant_matmul import quantize_rows
-
-        c_q, c_s = quantize_rows(ctx[:, 0, :])
-        return (_linear_pre_q(lp["o"], c_q, c_s, out_dtype)[:, None, :],
-                kp, vp)
-    return _linear(lp["o"], ctx.astype(x.dtype)), kp, vp
 
 
 def _ssm_decode_step(lp, config, x, layer_cache):

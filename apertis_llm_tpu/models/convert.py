@@ -262,10 +262,15 @@ def infer_config_from_state_dict(sd: Mapping[str, np.ndarray]) -> ApertisConfig:
     return ApertisConfig.from_dict(cfg)
 
 
+NPZ_WEIGHTS = "model.npz"
+
+
 def load_pretrained(model_dir: str | os.PathLike):
     """Load (config, params) from a reference-format checkpoint: a directory
-    with ``config.json`` + ``pytorch_model.bin``/``model.pt``, or a bare
-    weights file (config is then shape-sniffed from the state_dict)."""
+    with ``config.json`` + ``pytorch_model.bin``/``model.pt``/``model.npz``,
+    or a bare weights file (config is then shape-sniffed from the
+    state_dict). ``model.npz`` holds the same state dict as numpy arrays and
+    needs no torch."""
     from pathlib import Path
 
     model_dir = Path(model_dir)
@@ -273,14 +278,18 @@ def load_pretrained(model_dir: str | os.PathLike):
         ckpt, config_dir = model_dir, model_dir.parent
     else:
         config_dir = model_dir
-        for name in ("pytorch_model.bin", "model.pt"):
+        for name in ("pytorch_model.bin", "model.pt", NPZ_WEIGHTS):
             if (model_dir / name).exists():
                 ckpt = model_dir / name
                 break
         else:
             raise FileNotFoundError(
-                f"No pytorch_model.bin/model.pt under {model_dir}")
-    sd = load_torch_state_dict(ckpt)
+                f"No pytorch_model.bin/model.pt/{NPZ_WEIGHTS} under {model_dir}")
+    if ckpt.suffix == ".npz":
+        with np.load(ckpt) as data:
+            sd = {k: data[k] for k in data.files}
+    else:
+        sd = load_torch_state_dict(ckpt)
     if (config_dir / "config.json").exists():
         config = ApertisConfig.from_pretrained(config_dir)
     else:
@@ -409,3 +418,23 @@ def save_torch_checkpoint(params: Params, config: ApertisConfig, save_directory,
           for k, v in to_torch_state_dict(params, config).items()}
     torch.save(sd, save_directory / filename)
     config.save_pretrained(save_directory)
+
+
+def save_pretrained_weights(params: Params, config: ApertisConfig,
+                            save_directory) -> None:
+    """Write the weights in the reference's state-dict layout plus
+    ``config.json``: ``pytorch_model.bin`` when torch imports (loadable by
+    the PyTorch reference), else ``model.npz`` (loadable by
+    :func:`load_pretrained`)."""
+    try:
+        import torch  # noqa: F401
+    except ImportError:
+        from pathlib import Path
+
+        save_directory = Path(save_directory)
+        save_directory.mkdir(parents=True, exist_ok=True)
+        np.savez(save_directory / NPZ_WEIGHTS,
+                 **to_torch_state_dict(params, config))
+        config.save_pretrained(save_directory)
+        return
+    save_torch_checkpoint(params, config, save_directory)

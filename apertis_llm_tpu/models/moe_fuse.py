@@ -1,4 +1,4 @@
-"""Decode-time MoE FFN weight preparation for the fused Pallas kernel.
+"""Decode-time MoE FFN weight preparation (combine-folded fat layout).
 
 The dense all-expert decode combine (ops/moe.moe_dense, reference behaviour:
 src/model/core.py:547-605) computes, per expert e,
@@ -6,23 +6,10 @@ src/model/core.py:547-605) computes, per expert e,
     y_e = act(LN_e(x) @ W1_e + b1_e) @ W2_e + b2_e
     out = sum_e combine[s, e] * y_e[s]
 
-Measured at the 1.5B-MoE decode shapes, that path is bandwidth-bound on its
-own (E, S, I) intermediates (0.196 ms/layer vs a 0.088 ms HBM-traffic
-floor), so serving runs it through ops/pallas/moe_ffn.expert_ffn_dense — a
-single kernel that keeps the hidden block in VMEM. That kernel wants:
-
-  * ONE shared normalized-and-quantized x block for every expert. The
-    per-expert LayerNorm affine is therefore folded into W1:
-        LN_e(x) @ W1_e = xhat @ (diag(lw_e) W1_e) + (lb_e @ W1_e)
-    with xhat the un-affine layer norm, and the folded W1 re-quantized to
-    int8 per (expert, output-channel) — same scheme, same quality, as the
-    stock weight quantization (models/quantize.py).
-  * int8 W2 with per-(expert, output-channel) scales — the stock quantized
-    stack is reused as-is when present, quantized here otherwise.
-
-Built once by the inference engine (inference/engine.py) and attached under
-``params['layers']['ffn']['experts']['fused']``; consumed by
-ops/moe.moe_dense_fused on the decode hot path.
+:func:`attach_fused_decode_params` re-lays each layer's expert stack so that
+sum becomes two plain 2D int8 GEMMs (ops/moe.moe_dense_fat). Built once by
+the inference engine (inference/engine.py) and attached under
+``params['layers']['ffn']['experts']['fat']``.
 """
 
 from __future__ import annotations
@@ -32,8 +19,7 @@ from typing import Dict
 import jax
 import jax.numpy as jnp
 
-from apertis_llm_tpu.models.quantize import (quantize_weight,
-                                             quantize_weight_int4)
+from apertis_llm_tpu.models.quantize import quantize_weight
 
 Params = Dict[str, jnp.ndarray]
 
@@ -45,38 +31,7 @@ def _dequant(experts: Params, key: str) -> jnp.ndarray:
     return experts[key].astype(jnp.float32)
 
 
-def _fuse_one(experts: Params) -> Params:
-    """Fold one layer's (E, ...) expert stack into the kernel layout."""
-    ln_w = experts["ln_w"].astype(jnp.float32)        # (E, H)
-    ln_b = experts["ln_b"].astype(jnp.float32)        # (E, H)
-    w1 = _dequant(experts, "w1")                      # (E, H, I)
-    b1 = experts["b1"].astype(jnp.float32)            # (E, I)
-
-    w1f = ln_w[:, :, None] * w1                       # diag(lw_e) @ W1_e
-    b1f = b1 + jnp.einsum("eh,ehi->ei", ln_b, w1)     # lb_e @ W1_e + b1_e
-    q1, s1 = quantize_weight(w1f)                     # scales (E, 1, I)
-
-    if "w2_q" in experts:
-        q2 = experts["w2_q"]
-        s2 = experts["w2_s"].astype(jnp.float32)      # (E, 1, H)
-    else:
-        q2, s2 = quantize_weight(experts["w2"].astype(jnp.float32))
-    return {"w1f_q": q1, "w1f_s": s1.astype(jnp.float32), "b1f": b1f,
-            "w2f_q": q2, "w2f_s": s2}
-
-
-def fuse_moe_decode_params(experts: Params) -> Params:
-    """Build fused decode tensors from an expert stack (fp or int8-quantized),
-    with or without a leading layer-depth axis (Params convention: per-layer
-    tensors stacked on axis 0 for the lax.scan over layers)."""
-    fn = _fuse_one
-    # ln_w is (E, H) per layer; every extra leading axis is a stack dim.
-    for _ in range(experts["ln_w"].ndim - 2):
-        fn = jax.vmap(fn)
-    return fn(experts)
-
-
-def _fuse_one_fat(experts: Params, bits: int = 8) -> Params:
+def _fuse_one_fat(experts: Params) -> Params:
     """Combine-folded two-fat-2D-GEMM layout for one layer's expert stack.
 
     The dense all-expert combine sum re-associates into two PLAIN 2D GEMMs
@@ -85,8 +40,9 @@ def _fuse_one_fat(experts: Params, bits: int = 8) -> Params:
         H1  = xhat_q @ W1_flat            # (S,H) @ (H, E*I), shared x
         out = (combine . act(H1))_q @ W2_flat   # (S, E*I) @ (E*I, H)
 
-    with the per-expert LayerNorm affine folded into W1 (as in _fuse_one)
-    and the routing-combine weights folded into the hidden activations —
+    with the per-expert LayerNorm affine folded into W1,
+        LN_e(x) @ W1_e = xhat @ (diag(lw_e) W1_e) + (lb_e @ W1_e),
+    xhat being the un-affine layer norm shared by every expert, and the routing-combine weights folded into the hidden activations —
     inactive experts' hidden entries are exactly zero, so no batched dots,
     sorts, or gathers remain. W2_flat needs ONE int8 scale per output
     channel shared across experts (the contraction mixes experts), which is
@@ -105,68 +61,36 @@ def _fuse_one_fat(experts: Params, bits: int = 8) -> Params:
     b1f = b1 + jnp.einsum("eh,ehi->ei", ln_b, w1)     # (E, I)
     w1_flat = jnp.transpose(w1f, (1, 0, 2)).reshape(h, e * i)
     w2_flat = _dequant(experts, "w2").reshape(e * i, h)
-    if bits == 4:
-        # w4a8 serving (APERTIS_QUANT_BITS=4): the fat stacks — the MoE
-        # decode step's dominant weight traffic — store nibble-packed int4
-        # (models/quantize.quantize_weight_int4), unpacked in VMEM by the
-        # fat kernel. Expert storage itself stays int8/bf16: prefill's
-        # ragged path and training never see packed weights.
-        q1, s1, sh1 = quantize_weight_int4(w1_flat)   # (H/2, E*I)
-        q2, s2, sh2 = quantize_weight_int4(w2_flat)   # (E*I/2, H)
-        return {"w1t_q4": q1, "w1t_s": s1, "w1t_sh": sh1,
-                "b1t": b1f.reshape(e * i),
-                "w2t_q4": q2, "w2t_s": s2, "w2t_sh": sh2}
     q1, s1 = quantize_weight(w1_flat)                 # scales (1, E*I)
     q2, s2 = quantize_weight(w2_flat)                 # scales (1, H) shared
     return {"w1t_q": q1, "w1t_s": s1, "b1t": b1f.reshape(e * i),
             "w2t_q": q2, "w2t_s": s2}
 
 
-def fuse_moe_decode_params_fat(experts: Params, bits: int | None = None) -> Params:
+def fuse_moe_decode_params_fat(experts: Params) -> Params:
     """Layer-stacked variant of :func:`_fuse_one_fat`."""
-    import functools
-    import os
-
-    if bits is None:
-        bits = 4 if os.environ.get("APERTIS_QUANT_BITS", "8") == "4" else 8
-    h = experts["ln_w"].shape[-1]
-    i = (experts["w1_q"].shape[-1] if "w1_q" in experts
-         else experts["w1"].shape[-1])
-    e = experts["ln_w"].shape[-2]
-    # int4 needs 128-aligned contractions to PACK (h, e*i) and a
-    # 128-aligned PER-EXPERT intermediate for the fat kernel's tile loop
-    # (ops/pallas/moe_ffn.py picks bn=i when i isn't 128-tileable, which
-    # the int4 unpack rejects at trace time — gate it here instead so
-    # ineligible shapes serve int8).
-    if bits == 4 and (h % 128 or i % 128):
-        bits = 8
-    fn = functools.partial(_fuse_one_fat, bits=bits)
+    fn = _fuse_one_fat
+    # ln_w is (E, H) per layer; every extra leading axis is a stack dim.
     for _ in range(experts["ln_w"].ndim - 2):
         fn = jax.vmap(fn)
     return fn(experts)
 
 
-def attach_fused_decode_params(params, mode: str = "fat"):
-    """Return ``params`` with a fused decode stack attached (idempotent).
-
-    ``mode``: "fat" attaches the combine-folded two-fat-2D-GEMM stack
-    (consumed by ops/moe.moe_dense_fat), "kernel" the per-expert Pallas
-    stack (ops/moe.moe_dense_fused). No-op for trees without a stacked MoE
-    FFN. The original expert tensors stay in place — prefill's ragged path
-    and training still read them."""
+def attach_fused_decode_params(params):
+    """Return ``params`` with the fat decode stack attached (idempotent;
+    consumed by ops/moe.moe_dense_fat). No-op for trees without a stacked
+    MoE FFN. The original expert tensors stay in place: prefill's ragged
+    path and training still read them."""
     layers = params.get("layers") if isinstance(params, dict) else None
     ffn = layers.get("ffn") if isinstance(layers, dict) else None
     experts = ffn.get("experts") if isinstance(ffn, dict) else None
-    if not isinstance(experts, dict) or "fused" in experts or "fat" in experts:
+    if not isinstance(experts, dict) or "fat" in experts:
         return params
     if "w1" not in experts and "w1_q" not in experts:
         return params
-    if mode == "fat":
-        extra = {"fat": jax.jit(fuse_moe_decode_params_fat)(experts)}
-    else:
-        extra = {"fused": jax.jit(fuse_moe_decode_params)(experts)}
     new_params = dict(params)
     new_params["layers"] = dict(layers)
     new_params["layers"]["ffn"] = dict(ffn)
-    new_params["layers"]["ffn"]["experts"] = {**experts, **extra}
+    new_params["layers"]["ffn"]["experts"] = {
+        **experts, "fat": jax.jit(fuse_moe_decode_params_fat)(experts)}
     return new_params

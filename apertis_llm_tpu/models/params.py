@@ -2,8 +2,8 @@
 
 Parameters are plain nested dicts of jnp arrays. Per-layer parameters are
 STACKED along a leading ``num_hidden_layers`` axis so the forward pass can
-``lax.scan`` over depth — the idiomatic TPU layout (fast compiles, natural
-pipeline-parallel sharding axis).
+``lax.scan`` over depth (fast compiles, natural pipeline-parallel sharding
+axis).
 
 Linear weights are stored as (in_features, out_features) — JAX convention,
 transposed from torch. Initialisation distributions follow the reference's

@@ -1,10 +1,9 @@
 """Weight-only int8 quantization for serving.
 
-Decode at production batch sizes is bound by weight reads from HBM (the
-whole parameter set streams through VMEM every step). Symmetric per-output-
-channel int8 storage halves that traffic; the dequant multiply fuses into
-each matmul's operand load, so quality-sensitive compute still runs in
-bf16/fp32.
+Decode at serving batch sizes is bound by weight reads from device memory
+(the whole parameter set streams through the chip every step). Symmetric
+per-output-channel int8 storage halves that traffic; ops/quant.py holds the
+matmuls that consume it.
 
 Projection matrices inside linear-layer dicts (leaf key ``"w"``) and MoE
 expert stacks (``"w1"``/``"w2"``, dequantised on use in ops/moe.py) are
@@ -32,12 +31,8 @@ _SKIP_PARENTS = {"embed", "abs_pos", "final_norm", "pre_norm", "router",
                  "router_ln", "dt_proj", "conv", "lm_head"}
 # Whole subtrees left untouched by default: the ViT runs only at prefill
 # (not decode-bandwidth-bound) and reads its weights directly.
-# APERTIS_QUANT_VIT=1 (or quantize_vision=True) opts the ViT in — measured
-# NEUTRAL-to-slightly-negative for b256 TTFT on v5e twice: 1,132 vs
-# 1,100 ms device-staged (separate quantize passes), and still 958 vs
-# 943 ms with the pre-norm quantizes fused into ln_quant (the remaining
-# cost sits in the attention einsums/softmax, not the GEMMs int8
-# accelerates). Kept for memory-constrained serving.
+# APERTIS_QUANT_VIT=1 (or quantize_vision=True) opts the ViT in, for
+# memory-constrained serving.
 _SKIP_SUBTREES = {"vision", "vision_proj", "cross_modal", "encoder"}
 _VISION_SUBTREES = {"vision", "vision_proj"}
 
@@ -63,8 +58,7 @@ def quantize_weight_int4(
 
     Every (128-contraction-row group, output channel) gets its OWN
     effective scale — constrained to a power-of-two multiple of the
-    channel's base scale — without giving up the single int8 MXU dot per
-    tile: values store as int4 in [-7, 7], and the unpack multiplies each
+    channel's base scale — without giving up a single int8 dot: values store as int4 in [-7, 7], and the unpack multiplies each
     group by its shift factor ``2^e`` (e in 0..3), yielding int8 in
     [-56, 56]. With base scale = channel_absmax/56, a group whose absmax
     sits 8x below the channel max uses an 8x finer grid (up to 3 extra
@@ -75,13 +69,8 @@ def quantize_weight_int4(
     Two 4-bit values pack into one int8 byte paired WITHIN each 128-row
     contraction group: byte row ``128g + j`` (j < 64) holds contraction
     row ``128g + j`` in its low nibble and row ``128g + j + 64`` in its
-    high nibble. Group-local pairing means any contraction slice aligned
-    to 128 rows unpacks independently — the fused decode kernels can tile
-    the contraction (GEMM2 streams 128-multiple hidden tiles) without a
-    tile ever needing another tile's nibble partner (its shift block
-    slices the same way), and the unpack is a sublane-block interleave
-    (multiples of 64 rows), never a lane/sublane gather. The contraction
-    axis (-2) must be a multiple of 128."""
+    high nibble, so any contraction slice aligned to 128 rows unpacks
+    independently. The contraction axis (-2) must be a multiple of 128."""
     k = w.shape[-2]
     if k % INT4_GROUP:
         raise ValueError(f"int4 contraction axis must be a multiple of "
@@ -111,9 +100,8 @@ def unpack_int4(packed: jnp.ndarray, shifts: jnp.ndarray = None
     """Invert :func:`quantize_weight_int4`'s packing: (..., in/2, out) int8
     bytes -> (..., in, out) int8 values — in [-7, 7], or scaled by the
     per-(group, channel) ``shifts`` factors to [-56, 56]. Pure
-    reshape/arithmetic (group-local sublane interleave + one broadcast
-    integer multiply), usable both from XLA and inside a Pallas kernel
-    body."""
+    reshape/arithmetic (group-local interleave + one broadcast integer
+    multiply)."""
     lead = packed.shape[:-2]
     kh, n = packed.shape[-2], packed.shape[-1]
     p = packed.astype(jnp.int32)
@@ -147,14 +135,6 @@ def quantize_params(params: Params, min_size: int = 1 << 16,
 
     if quantize_vision is None:
         quantize_vision = os.environ.get("APERTIS_QUANT_VIT", "0") == "1"
-    # int4 is a DECODE-ONLY format: packing it into the base tree (an
-    # earlier round-4 layout) fed packed weights to the compute-bound
-    # prefill graph, whose in-graph unpacks blew the TTFT program's XLA
-    # compile up to 1,522 s and regressed device TTFT ~930 -> 1,777 ms
-    # (measured, 1.5B b256). The engine instead attaches an int4 decode
-    # pack alongside the int8 tree (attach_int4_ffn below, the MoE
-    # analogue being models/moe_fuse.py's fat stack) so prefill always
-    # reads int8.
 
     def walk(tree, name):
         if not isinstance(tree, dict):
@@ -180,73 +160,6 @@ def quantize_params(params: Params, min_size: int = 1 << 16,
     return walk(params, "")
 
 
-def attach_int4_ffn(params: Params, config=None) -> Params:
-    """Attach a nibble-packed int4 DECODE copy of the dense-FFN weights
-    (w4a8 serving, ``APERTIS_QUANT_BITS=4``).
-
-    The pack lives under ``layers.ffn["w4"]`` next to the int8 tree:
-    prefill/training keep reading int8 (packing int4 into the base tree
-    fed in-graph unpacks to the compute-bound prefill program — measured
-    1,522 s TTFT-program compile and ~930 -> 1,777 ms device TTFT at 1.5B
-    b256), while decode_step hoists the pack and feeds the fused decode
-    kernels the packed form for the halved weight DMA. Values requantize
-    from the int8 tree (w_q * w_s -> 4-bit grid; the extra <=half-int8
-    step of error is far below the int4 step). No-op unless the tree is a
-    dense-FFN int8 layout with 128-aligned contractions (the MoE analogue
-    packs in models/moe_fuse.py; SwiGLU trees stay int8 — no fused decode
-    kernel consumes them packed)."""
-    ffn = params.get("layers", {}).get("ffn")
-    if not isinstance(ffn, dict) or "w4" in ffn:
-        return params
-    w1, w2 = ffn.get("w1"), ffn.get("w2")
-    if not all(isinstance(w, dict) and "w_q" in w and "b" in w
-               for w in (w1, w2)):
-        return params
-    if (w1["w_q"].shape[-2] % INT4_GROUP
-            or w2["w_q"].shape[-2] % INT4_GROUP):
-        return params
-    pack = {}
-    for name, w in (("w1", w1), ("w2", w2)):
-        q4, s, sh = quantize_weight_int4(
-            w["w_q"].astype(jnp.float32) * w["w_s"])
-        pack[name] = {"w_q4": q4, "w_s": s, "w_sh": sh, "b": w["b"]}
-    out = dict(params)
-    out["layers"] = dict(params["layers"])
-    out["layers"]["ffn"] = dict(ffn)
-    out["layers"]["ffn"]["w4"] = pack
-    return out
-
-
-def attach_qkv_mha(params: Params, config=None) -> Params:
-    """Attach a fused QKV projection for the MHA decode scan.
-
-    Concatenates the int8 q/k/v projection stacks along the output axis
-    (``layers.attn["qkv"] = {w_q: (L, H, 3H), w_s, b?}``) so the decode
-    step runs ONE int8 MXU dot + dequant epilogue per layer instead of
-    three — at decode row counts each extra dot carries its own dispatch
-    and (rows, H)-sized dequant fusion. The split back into q/k/v is a
-    lane-tile-aligned slice. Costs one extra int8 copy of the attention
-    projections in HBM; the originals stay for prefill. No-op unless the
-    tree is an int8 MHA layout."""
-    attn = params.get("layers", {}).get("attn")
-    if not isinstance(attn, dict) or "qkv" in attn:
-        return params
-    parts = [attn.get(k) for k in ("q", "k", "v")]
-    if not all(isinstance(p, dict) and "w_q" in p for p in parts):
-        return params
-    fused = {
-        "w_q": jnp.concatenate([p["w_q"] for p in parts], axis=-1),
-        "w_s": jnp.concatenate([p["w_s"] for p in parts], axis=-1),
-    }
-    if all("b" in p for p in parts):
-        fused["b"] = jnp.concatenate([p["b"] for p in parts], axis=-1)
-    out = dict(params)
-    out["layers"] = dict(params["layers"])
-    out["layers"]["attn"] = dict(attn)
-    out["layers"]["attn"]["qkv"] = fused
-    return out
-
-
 def tree_is_quantized(params: Params) -> bool:
     """True if any linear in the tree carries int8 serving weights."""
     if not isinstance(params, dict):
@@ -263,13 +176,11 @@ def quantize_tied_head(params: Params) -> Params:
     The quantizer keeps the embedding table high-precision (it is gathered
     per token AND doubles as the tied head), which leaves the decode step's
     single largest projection — (B, H) x (H, V) — reading the full bf16
-    table every token: profiled 253 us of the 2.46 ms b256 step at 1.5B
-    (V=32000, H=2432, 155 MB bf16). This attaches ``lm_head =
-    {"w_q": (H, V) int8, "w_s": (1, V)}`` consumed by ``_lm_head`` through
-    the standard ``_linear`` dispatch (dyn-int8 on the MXU at serving row
-    counts, weight-only dequant below), halving the head's weight read and
-    doubling its MXU rate, at ~+V*H bytes of HBM (the bf16 table stays for
-    embedding lookups). Greedy parity with the bf16 head is pinned in
+    table every token (155 MB at the 1.2B flagship's V=32000, H=2432).
+    This attaches ``lm_head = {"w_q": (H, V) int8, "w_s": (1, V)}``
+    consumed by ``_lm_head`` through the standard ``_linear`` dispatch,
+    halving the head's weight read at ~+V*H bytes of device memory (the
+    bf16 table stays for embedding lookups). Greedy parity with the bf16 head is pinned in
     tests/test_quantize.py; disable with APERTIS_QUANT_HEAD=0."""
     if "lm_head" in params or "embed" not in params:
         return params

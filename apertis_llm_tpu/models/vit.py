@@ -7,8 +7,8 @@ Functional reimplementation of the reference UnifiedMultimodalEncoder
 ``torch.nn.TransformerEncoderLayer(norm_first=True)`` in eval mode (LN eps
 1e-5, packed qkv projection, exact GELU).
 
-The patch embedding is expressed as a single reshape + matmul (one big MXU
-op) rather than a convolution, and image resize/normalisation are also
+The patch embedding is expressed as a single reshape + matmul rather than a
+convolution, and image resize/normalisation are also
 in-graph so the whole image path compiles into one XLA program.
 """
 
@@ -54,24 +54,15 @@ def _qlin(lp: dict, x: jnp.ndarray) -> jnp.ndarray:
 
 
 def _vit_attention(x: jnp.ndarray, lp: dict, num_heads: int,
-                   key_bias=None, x_quant=None, out_dtype=None) -> jnp.ndarray:
+                   key_bias=None) -> jnp.ndarray:
     """Self-attention over an L-FIRST (L, B, D) token stream.
 
     The attention-output einsum naturally emits its q (token) axis major,
-    so with a (B, L, D) stream every residual add pays an L<->B relayout
-    inside the while carry (profiled ~4.3 ms/layer at b256). Running the
-    whole layer stack L-first makes XLA's preferred layout the row-major
-    one — the einsums below differ from the (B, L, D) form only in the
-    subscript order."""
-    if x_quant is not None:
-        from apertis_llm_tpu.models.apertis import _linear_pre_q
-
-        l, b, _ = x_quant[0].shape
-        d = lp["in_proj_w_q"].shape[0]
-        qkv = _linear_pre_q(
-            {"w_q": lp["in_proj_w_q"], "w_s": lp["in_proj_w_s"],
-             "b": lp["in_proj_b"]}, x_quant[0], x_quant[1], out_dtype)
-    elif "in_proj_w_q" in lp:
+    so with a (B, L, D) stream every residual add would pay an L<->B
+    relayout inside the scan carry. Running the whole layer stack L-first
+    makes that layout the row-major one; the einsums below differ from the
+    (B, L, D) form only in the subscript order."""
+    if "in_proj_w_q" in lp:
         l, b, d = x.shape
         qkv = _qlin({"w_q": lp["in_proj_w_q"], "w_s": lp["in_proj_w_s"],
                      "b": lp["in_proj_b"]}, x)            # (L, B, 3D)
@@ -100,21 +91,11 @@ def _vit_attention(x: jnp.ndarray, lp: dict, num_heads: int,
 
 def _vit_layer(x: jnp.ndarray, lp: dict, num_heads: int,
                key_bias=None) -> jnp.ndarray:
-    # Pre-norm residual blocks (norm_first=True). On the int8-serving path
-    # (APERTIS_QUANT_VIT=1) each pre-norm fuses with the activation
-    # quantize its projection consumes, exactly like the decoder layers
-    # (models/apertis._maybe_ln_quant).
-    from apertis_llm_tpu.models.apertis import _linear_pre_q, _maybe_ln_quant
-
-    in_proj = ({"w_q": lp["in_proj_w_q"]} if "in_proj_w_q" in lp else None)
-    h, xq = _maybe_ln_quant(lp["ln1"], x, _VIT_LN_EPS, (in_proj,))
-    x = x + _vit_attention(h, lp, num_heads, key_bias,
-                           x_quant=xq, out_dtype=x.dtype)
-    h, xq = _maybe_ln_quant(lp["ln2"], x, _VIT_LN_EPS, (lp["linear1"],))
-    if xq is not None:
-        h = gelu(_linear_pre_q(lp["linear1"], xq[0], xq[1], x.dtype))
-    else:
-        h = gelu(_qlin(lp["linear1"], h))
+    # Pre-norm residual blocks (norm_first=True).
+    h = layer_norm(x, lp["ln1"]["w"], lp["ln1"]["b"], eps=_VIT_LN_EPS)
+    x = x + _vit_attention(h, lp, num_heads, key_bias)
+    h = layer_norm(x, lp["ln2"]["w"], lp["ln2"]["b"], eps=_VIT_LN_EPS)
+    h = gelu(_qlin(lp["linear1"], h))
     h = _qlin(lp["linear2"], h)
     return x + h
 
@@ -131,9 +112,7 @@ def vit_encode(params: dict, config: ApertisConfig, pixel_values: jnp.ndarray) -
     x = x.transpose(0, 2, 4, 1, 3, 5).reshape(b, sp * sp, 3 * p * p)
     # Run the encoder in the weights' dtype: preprocess_images emits float32,
     # and without this cast the promotion rules would run every ViT GEMM in
-    # f32 — measured 159 ms for the b256 encode, the f32 MXU rate, vs the
-    # bf16 rate the rest of the model runs at. Attention scores/softmax stay
-    # f32 via preferred_element_type.
+    # f32. Attention scores/softmax stay f32 via preferred_element_type.
     x = x.astype(params["cls_token"].dtype)
     x = _qlin(params["patch_embed"], x)
 
@@ -141,12 +120,10 @@ def vit_encode(params: dict, config: ApertisConfig, pixel_values: jnp.ndarray) -
     x = jnp.concatenate([cls, x], axis=1)
     x = x + params["pos_embed"]
 
-    # Sublane-align the token axis: 197 (196 patches + CLS) is not a
-    # multiple of 8, which pushes XLA into a transposed while-carry layout
-    # with per-layer relayout copies (profiled ~4 ms/layer at b256). Pad to
-    # the next multiple of 8 with attention-masked tokens — real-token
-    # outputs are exactly unchanged (pad keys get -inf scores; pad rows are
-    # sliced off before returning).
+    # Pad the token axis (197 = 196 patches + CLS) to a multiple of 8 with
+    # attention-masked tokens, so the scan carry keeps a row-major layout.
+    # Real-token outputs are exactly unchanged (pad keys get -inf scores;
+    # pad rows are sliced off before returning).
     l = x.shape[1]
     pad = (-l) % 8
     key_bias = None
@@ -156,20 +133,15 @@ def vit_encode(params: dict, config: ApertisConfig, pixel_values: jnp.ndarray) -
                              ).astype(jnp.float32)
 
     # The layer stack runs L-FIRST (see _vit_attention): one transpose in
-    # and out replaces a per-layer L<->B relayout of the residual stream
-    # that XLA otherwise folds into every add (profiled ~4.3 ms/layer,
-    # ~44% of the b256 encode).
+    # and out replaces a per-layer L<->B relayout of the residual stream.
     x = x.transpose(1, 0, 2)
 
     def body(h, lp):
         return _vit_layer(h, lp, config.vision_heads, key_bias), None
 
     # APERTIS_VIT_UNROLL=1 replaces the layer scan with statically indexed
-    # layers. Hypothesis was that freeing the scan-carry layout would drop
-    # the ~4.3 ms/layer residual-add/copy traffic; measured on v5e b256 it
-    # REGRESSES TTFT (1064-1084 ms vs 907-931 with the scan — XLA spreads
-    # even more async copies around the unrolled layers). Knob kept as the
-    # record of that experiment; numerics identical either way.
+    # layers; numerics are identical either way. Its effect on the GPU is
+    # not measured.
     import os
 
     if os.environ.get("APERTIS_VIT_UNROLL", "0") == "1":

@@ -1,9 +1,9 @@
-// _apertis_native: C++ host-side data loader for the Apertis TPU framework.
+// _apertis_native: C++ host-side data loader for the Apertis framework.
 //
 // The input pipeline's hot path — JSONL parsing, whitespace tokenisation
 // against a vocab map, pad/truncate, label masking — runs here with the GIL
 // released and a thread pool over file chunks, feeding device batches faster
-// than a single TPU host's Python loop can (the reference used torch
+// than a single host's Python loop can (the reference used torch
 // DataLoader worker subprocesses for the same job, pipeline.py:502).
 //
 // Pure CPython API (no pybind11/numpy headers): results return as
@@ -266,7 +266,7 @@ static PyMethodDef Methods[] = {
 
 static struct PyModuleDef moduledef = {
     PyModuleDef_HEAD_INIT, "_apertis_native",
-    "Native host-side data loading for Apertis-TPU", -1, Methods,
+    "Native host-side data loading for Apertis", -1, Methods,
 };
 
 PyMODINIT_FUNC PyInit__apertis_native(void) {

@@ -1,10 +1,9 @@
 """Multi-head attention compute paths.
 
-Three entry points:
-  * :func:`mha` — plain XLA softmax attention with an additive mask. XLA fuses
-    this well on TPU for short/medium sequences and it is the parity oracle.
-  * :func:`mha_causal_flash` — Pallas fused causal flash-attention kernel for
-    long-sequence training/prefill (see ops/pallas/flash_attention.py).
+Entry points:
+  * :func:`mha` — plain XLA softmax attention with an additive mask; the
+    parity oracle. (Fused attention, ``use_flash_attention``, is
+    ``jax.nn.dot_product_attention``; see models/apertis._mha_full.)
   * :func:`decode_attention` — single-query attention against a preallocated
     KV cache with a length mask; the hot op of autoregressive decode.
 

@@ -1,4 +1,4 @@
-"""Adaptive Expert System (token-choice top-k MoE) — TPU-native.
+"""Adaptive Expert System (token-choice top-k MoE).
 
 Replaces the reference's Python double loop over (k_choice x expert) with
 static-shape dispatch (reference: src/model/core.py:470-607). Two compute
@@ -10,7 +10,7 @@ paths share one routing front-end:
     gather/scatter. E x FLOPs for large S.
   * :func:`moe_dispatch` — Switch-style capacity-bucketed dispatch: cumsum
     position assignment, scatter into (E, C, H) buckets, batched expert
-    matmuls on the MXU, gather-combine. Used for training and large prefill.
+    matmuls, gather-combine. Used for training with a capacity limit.
 
 Routing semantics preserved from the reference:
   * router LayerNorm -> linear -> float32 logits (core.py:481-482)
@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 
+from apertis_llm_tpu.ops import quant as quant_ops
 from apertis_llm_tpu.ops.activations import get_activation
 from apertis_llm_tpu.ops.norms import layer_norm
 
@@ -100,8 +101,8 @@ def _top_k_gates(gates: jnp.ndarray, k: int):
 
     ``lax.top_k`` lowers to a generic sort pipeline; for the k<=2 routing
     that runs once per layer per decode step, two argmax passes over E<=64
-    gates are pure VPU work with identical tie-breaking (first index wins)
-    — measurably cheaper on the 44-layer decode chain."""
+    gates are two reductions with identical tie-breaking (first index
+    wins)."""
     if k > 2 or gates.shape[-1] > 64:
         return jax.lax.top_k(gates, k)
     i1 = jnp.argmax(gates, axis=-1)
@@ -129,28 +130,18 @@ def _expert_mlp(
 
 
 def _use_dyn_int8(expert_params: dict, rows: int) -> bool:
-    """Dense-path dispatch mirror of models.apertis._linear: int8-MXU expert
-    GEMMs once the token dimension saturates the MXU (same 128-row
-    crossover, same APERTIS_QUANT_MATMUL override semantics)."""
+    """Dense-path mirror of models.apertis._linear: dynamic int8 expert
+    GEMMs by the same row-count rule (ops/quant.use_dyn)."""
     if "w1_q" not in expert_params or "w2_q" not in expert_params:
         return False
-    import os
-
-    mode = os.environ.get("APERTIS_QUANT_MATMUL", "auto")
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:
-        on_tpu = False
-    if mode == "dyn":
-        return True
-    return mode == "auto" and on_tpu and rows >= 128
+    return quant_ops.use_dyn(rows)
 
 
 def _maybe_dequant_experts(expert_params: dict, dtype) -> dict:
     """Resolve int8 expert stacks ({w1_q, w1_s} from models/quantize.py) to
     compute-dtype weights. The dequant multiply is a broadcast over the
     output channel, which XLA fuses into the consuming (ragged) matmul's
-    operand load — expert HBM traffic stays at int8 width."""
+    operand load — expert weight traffic stays at int8 width."""
     if "w1_q" not in expert_params and "w2_q" not in expert_params:
         return expert_params
     out = dict(expert_params)
@@ -162,16 +153,12 @@ def _maybe_dequant_experts(expert_params: dict, dtype) -> dict:
 
 
 def _dyn_int8_batched(x: jnp.ndarray, w_q: jnp.ndarray, w_s: jnp.ndarray):
-    """Batched dynamic-activation int8 matmul: (E,S,K) @ (E,K,N) on the MXU.
+    """Batched dynamic-activation int8 matmul: (E,S,K) @ (E,K,N).
 
     Per-(expert,row) activation scales; same contract as
-    ops.pallas.quant_matmul.quant_matmul_dyn_xla but with a leading batch
-    dim, so the 8-expert dense decode combine runs at the int8 MXU rate
-    (449 vs 190 bf16 TFLOP/s measured at 256-row shapes)."""
-    from apertis_llm_tpu.ops.pallas.quant_matmul import quantize_rows
-
+    ops.quant.quant_matmul_dyn_xla with a leading batch dim."""
     e, s, k = x.shape
-    x_q, x_s = quantize_rows(x.reshape(e * s, k))
+    x_q, x_s = quant_ops.quantize_rows(x.reshape(e * s, k))
     acc = jax.lax.dot_general(
         x_q.reshape(e, s, k), w_q, (((2,), (1,)), ((0,), (0,))),
         preferred_element_type=jnp.int32)                  # (E, S, N)
@@ -181,7 +168,7 @@ def _dyn_int8_batched(x: jnp.ndarray, w_q: jnp.ndarray, w_s: jnp.ndarray):
 
 
 def _moe_dense_int8(x, expert_params, act_fn, layer_norm_eps):
-    """All-expert forward with int8-MXU expert GEMMs (decode hot path)."""
+    """All-expert forward with dynamic int8 expert GEMMs (decode hot path)."""
     ep = expert_params
     xn = jax.vmap(lambda lw, lb: layer_norm(x, lw, lb, eps=layer_norm_eps))(
         ep["ln_w"], ep["ln_b"])                            # (E, S, H)
@@ -246,21 +233,19 @@ def moe_dense_fat(
     re-associates into (S,H)@(H,E*I) and (S,E*I)@(E*I,H) with the combine
     weights folded into the hidden activations (inactive experts' entries
     are exactly zero) and sum_e combine[s,e]*b2_e = combine @ b2 added
-    outside — no batched dots, sorts, or gathers. 2D int8 dots are the
-    fastest MXU path XLA has at decode row counts (449 TFLOP/s measured vs
-    ~83 dense-equiv for the batched form). Same math as moe_dense up to
-    int8 rounding; W2's shared-per-channel scales are the one extra
+    outside — no batched dots, sorts, or gathers. Same math as moe_dense
+    up to int8 rounding; W2's shared-per-channel scales are the one extra
     quantization coarsening (models/moe_fuse._fuse_one_fat)."""
-    from apertis_llm_tpu.ops.pallas.quant_matmul import quantize_rows
-
+    quantize_rows = quant_ops.quantize_rows
     fat = expert_params["fat"]
     act_fn = get_activation(hidden_act)
     num_experts = expert_params["b2"].shape[0]
     s, h = x.shape
     ei = fat["b1t"].shape[0]
 
-    # Shared un-affine LayerNorm (affines live in W1/b1), folded into the
-    # per-row activation scale exactly as in moe_dense_fused.
+    # Shared un-affine LayerNorm (affines live in W1/b1). quantize_rows is
+    # scale-invariant per row, so quantizing (x - mean) and folding the
+    # normalisation inverse into the row scale is exact.
     xf = x.astype(jnp.float32)
     mean = jnp.mean(xf, axis=-1, keepdims=True)
     var = jnp.mean(jnp.square(xf - mean), axis=-1, keepdims=True)
@@ -268,16 +253,7 @@ def moe_dense_fat(
     xq, xs = quantize_rows(xf - mean)
     xs = xs * inv
 
-    if "w1t_q4" in fat:
-        # int4-packed fat stacks: unpack in-graph (XLA fuses the nibble
-        # arithmetic into the dot operand load; the kernel path consumes
-        # the packed form directly).
-        from apertis_llm_tpu.models.quantize import unpack_int4
-
-        w1t = unpack_int4(fat["w1t_q4"], fat.get("w1t_sh"))
-        w2t = unpack_int4(fat["w2t_q4"], fat.get("w2t_sh"))
-    else:
-        w1t, w2t = fat["w1t_q"], fat["w2t_q"]
+    w1t, w2t = fat["w1t_q"], fat["w2t_q"]
     acc1 = jax.lax.dot_general(xq, w1t, (((1,), (0,)), ((), ())),
                                preferred_element_type=jnp.int32)  # (S, E*I)
     hidden = act_fn(acc1.astype(jnp.float32) * xs
@@ -292,105 +268,6 @@ def moe_dense_fat(
     out = (acc2.astype(jnp.float32) * hs * fat["w2t_s"].astype(jnp.float32)
            + combine @ expert_params["b2"].astype(jnp.float32))
     return out.astype(x.dtype)
-
-
-def moe_dense_fat_kernel(
-    x: jnp.ndarray,            # (S, H)
-    routing: RouterOutput,
-    expert_params: dict,       # carries the "fat" stack (models/moe_fuse.py)
-    hidden_act: str,
-    layer_norm_eps: float,
-    active_mask: Optional[jnp.ndarray] = None,
-    fat_stack: Optional[dict] = None,  # layer-stacked fat tensors (L, ...)
-    layer_idx=None,            # int32 layer index, required with fat_stack
-) -> jnp.ndarray:
-    """Combine-folded dense MoE FFN through ONE fused Pallas kernel.
-
-    Same weight layout as :func:`moe_dense_fat` (two fat 2D GEMMs over the
-    flattened E*I intermediate), but the act -> combine-scale -> requantize
-    chain between them runs in VMEM inside the kernel
-    (ops/pallas/moe_ffn.expert_ffn_fat) — the fat path's measured cost was
-    exactly its f32 hidden activations round-tripping HBM (~46 MB/layer at
-    the 1.5B decode shapes), and the per-expert kernel's was the (E, S, H)
-    all-expert output + combine einsum. Here HBM traffic is weights + x +
-    (S, H) out, read/written once. Hidden scales are per (row, tile) —
-    finer than the fat path's per-row; W2's shared per-channel scale is the
-    same coarsening (pinned in tests/test_moe_fused.py).
-
-    ``fat_stack``/``layer_idx``: inside the decode scan over layers, pass
-    the FULL layer-stacked fat tensors plus the iteration index — XLA
-    cannot fuse a dynamic-slice into a pallas operand and would
-    materialise both expert matrices every layer step (~47 us/layer
-    profiled at 1.5B shapes); the kernel scalar-prefetches the index and
-    DMAs tiles straight from the stack."""
-    from apertis_llm_tpu.ops.pallas.moe_ffn import expert_ffn_fat
-    from apertis_llm_tpu.ops.pallas.quant_matmul import quantize_rows
-
-    fat = fat_stack if fat_stack is not None else expert_params["fat"]
-    num_experts = expert_params["b2"].shape[0]
-
-    xf = x.astype(jnp.float32)
-    mean = jnp.mean(xf, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(xf - mean), axis=-1, keepdims=True)
-    inv = jnp.where(var > 0, jax.lax.rsqrt(var + layer_norm_eps), 0.0)
-    xq, xs = quantize_rows(xf - mean)
-    xs = xs * inv
-
-    combine = _combine_weights(routing, num_experts, jnp.float32, active_mask)
-    int4 = "w1t_q4" in fat
-    out = expert_ffn_fat(
-        xq, xs, combine, fat["w1t_q4" if int4 else "w1t_q"], fat["w1t_s"],
-        fat["b1t"], fat["w2t_q4" if int4 else "w2t_q"], fat["w2t_s"],
-        num_experts, layer_idx=layer_idx,
-        out_dtype=jnp.float32, hidden_act=hidden_act, int4=int4,
-        w1t_sh=fat.get("w1t_sh"), w2t_sh=fat.get("w2t_sh"))
-    out = out + combine @ expert_params["b2"].astype(jnp.float32)
-    return out.astype(x.dtype)
-
-
-def moe_dense_fused(
-    x: jnp.ndarray,            # (S, H)
-    routing: RouterOutput,
-    expert_params: dict,       # carries the "fused" stack (models/moe_fuse.py)
-    hidden_act: str,
-    layer_norm_eps: float,
-    active_mask: Optional[jnp.ndarray] = None,
-) -> jnp.ndarray:
-    """Dense all-expert combine through the fused expert-FFN kernel.
-
-    Same math as :func:`moe_dense` (up to int8 rounding): the per-expert
-    LayerNorm affine is pre-folded into W1 so every expert consumes one
-    shared normalized-and-quantized x, and the whole int8 GEMM1 -> act ->
-    requantize -> int8 GEMM2 chain runs inside ONE Pallas kernel with the
-    (rows, I) hidden block pinned in VMEM (ops/pallas/moe_ffn.py) — the
-    dense path's measured bottleneck is HBM traffic on exactly that
-    intermediate. See models/moe_fuse.py for the weight preparation.
-    """
-    from apertis_llm_tpu.ops.pallas.moe_ffn import expert_ffn_dense
-    from apertis_llm_tpu.ops.pallas.quant_matmul import quantize_rows
-
-    fused = expert_params["fused"]
-    num_experts = fused["b1f"].shape[0]
-
-    # Un-affine LayerNorm shared by every expert (affines live in W1/b1).
-    xf = x.astype(jnp.float32)
-    mean = jnp.mean(xf, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(xf - mean), axis=-1, keepdims=True)
-    inv = jnp.where(var > 0, jax.lax.rsqrt(var + layer_norm_eps), 0.0)
-    xq, xs = quantize_rows(xf - mean)
-    # Fold the normalization inverse into the per-row activation scale —
-    # quantize_rows is scale-invariant per row, so quantizing (x - mean)
-    # and multiplying the scale is exact.
-    xs = xs * inv
-
-    all_out = expert_ffn_dense(
-        xq, xs, fused["w1f_q"], fused["w1f_s"], fused["b1f"],
-        fused["w2f_q"], fused["w2f_s"],
-        expert_params["b2"].astype(jnp.float32),
-        out_dtype=x.dtype, hidden_act=hidden_act)            # (E, S, H)
-
-    combine = _combine_weights(routing, num_experts, x.dtype, active_mask)
-    return jnp.einsum("se,esh->sh", combine, all_out)
 
 
 def moe_dispatch(
@@ -449,92 +326,6 @@ def moe_dispatch(
     return out
 
 
-def moe_grouped_fat(
-    x: jnp.ndarray,            # (S, H)
-    routing: RouterOutput,
-    expert_params: dict,       # carries b2 (the fat layout folds the rest)
-    hidden_act: str,
-    layer_norm_eps: float,
-    fat_stack: dict,           # layer-stacked fat tensors (L, ...) — hoisted
-    layer_idx,                 # int32 layer index into the stack
-    active_mask: Optional[jnp.ndarray] = None,
-) -> jnp.ndarray:
-    """Tile-padded grouped dispatch through the Pallas grouped-FFN kernel
-    (ops/pallas/moe_grouped.py) — the PREFILL analogue of the fat decode
-    kernel, replacing ragged_dot. Each expert's sorted row group is padded
-    to a 128-row tile multiple so every kernel tile belongs to one expert;
-    padding rows carry zero activations and are never gathered back.
-
-    Shares the fat stack's numerics: per-expert LN affine folded into W1
-    (one shared un-affine normalize + int8 quantize over the S tokens),
-    dynamic-activation int8 GEMMs, W2 scales shared per output channel,
-    ``combine @ b2`` added at the end."""
-    from apertis_llm_tpu.ops.pallas.moe_grouped import TILE, expert_ffn_grouped
-    from apertis_llm_tpu.ops.pallas.quant_matmul import quantize_rows
-
-    s, h = x.shape
-    k = routing.indices.shape[1]
-    num_experts = expert_params["b2"].shape[0]
-    sk = s * k
-
-    # Shared un-affine LayerNorm + int8 quantize, ONCE per token (the
-    # affines live in W1/b1 — models/moe_fuse.py).
-    xf = x.astype(jnp.float32)
-    mean = jnp.mean(xf, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(xf - mean), axis=-1, keepdims=True)
-    inv = jnp.where(var > 0, jax.lax.rsqrt(var + layer_norm_eps), 0.0)
-    xq, xs = quantize_rows(xf - mean)
-    xs = xs * inv                                    # (S, 1)
-
-    flat_e = routing.indices.reshape(-1)             # (S*K) token-major
-    flat_w = routing.weights.reshape(-1).astype(jnp.float32)
-    if active_mask is not None:
-        flat_w = flat_w * active_mask[flat_e].astype(flat_w.dtype)
-
-    # Counting-sort dispatch — NO argsort: with E small the rank of each
-    # (token, expert) pair within its expert group is a one-hot cumsum
-    # (xplane: XLA's 118k-row sort + the order-indirected gathers it
-    # forces were a measurable slice of the 44-layer prefill).
-    onehot = (flat_e[:, None] == jnp.arange(num_experts)[None, :]
-              ).astype(jnp.int32)                    # (S*K, E)
-    csum = jnp.cumsum(onehot, axis=0)
-    cnt = csum[-1]                                   # (E,)
-    rank = jnp.take_along_axis(csum - onehot, flat_e[:, None],
-                               axis=1)[:, 0]         # rank within group
-    cnt_pad = ((cnt + TILE - 1) // TILE) * TILE
-    off_pad = jnp.cumsum(cnt_pad) - cnt_pad          # exclusive, padded
-    dest = off_pad[flat_e] + rank                    # (S*K) padded slots
-
-    p = sk + num_experts * TILE                      # static row bound
-    n_tiles = p // TILE
-    # tile -> expert: the index of the padded group containing tile start.
-    emap = jnp.clip(
-        jnp.searchsorted(jnp.cumsum(cnt_pad),
-                         jnp.arange(n_tiles) * TILE, side="right"),
-        0, num_experts - 1).astype(jnp.int32)
-
-    # Token-major rows: row j reads token j // k — a contiguous repeat,
-    # not a data-dependent gather.
-    xq_rep = jnp.repeat(xq, k, axis=0)
-    xs_rep = jnp.repeat(xs, k, axis=0)
-    xq_pad = jnp.zeros((p, h), jnp.int8).at[dest].set(xq_rep)
-    xs_pad = jnp.zeros((p, 1), jnp.float32).at[dest].set(xs_rep)
-
-    y_pad = expert_ffn_grouped(
-        xq_pad, xs_pad, emap, fat_stack["w1t_q"], fat_stack["w1t_s"],
-        fat_stack["b1t"], fat_stack["w2t_q"], fat_stack["w2t_s"],
-        num_experts, layer_idx, out_dtype=jnp.bfloat16,
-        hidden_act=hidden_act)                       # (P, H) — bf16 halves
-                                                     # the 59 MB/layer write
-    y = y_pad[dest].astype(jnp.float32) * flat_w[:, None]   # token-major
-    combine = _combine_weights(routing, num_experts, jnp.float32,
-                               active_mask)
-    # Token-major K-way sum: reshape instead of a scatter-add.
-    out = jnp.sum(y.reshape(s, k, h), axis=1)
-    out = out + combine @ expert_params["b2"].astype(jnp.float32)
-    return out.astype(x.dtype)
-
-
 def moe_ragged(
     x: jnp.ndarray,            # (S, H)
     routing: RouterOutput,
@@ -546,23 +337,17 @@ def moe_ragged(
     """Sort-based dispatch with grouped matmuls (``jax.lax.ragged_dot``).
 
     Token-choice pairs are sorted by expert; each expert's contiguous row
-    group multiplies its own weights on the MXU in one grouped matmul. No
+    group multiplies its own weights in one grouped matmul. No
     capacity limit: every selected (token, expert) pair is computed, so the
     result equals :func:`moe_dense` exactly (up to fp reassociation) at
-    1/E of its FLOPs. This is the default training/prefill path on TPU.
+    1/E of its FLOPs. This is the default training/prefill path.
     """
     s, h = x.shape
     k = routing.indices.shape[1]
-    # int8 ragged_dot is OPT-IN (APERTIS_QUANT_MATMUL=dyn): measured a
-    # 2,092 vs 1,713 ms TTFT REGRESSION at 1.5B-MoE b256 — the custom-call
-    # cannot fuse its dequant epilogue, so the int32 accumulators
-    # (1.3 GB/layer) round-trip HBM. The grouped Pallas kernel
-    # (moe_grouped_fat) is the int8 prefill path; this branch remains for
-    # measurement.
-    import os as _os
-
-    int8 = ("w1_q" in expert_params
-            and _os.environ.get("APERTIS_QUANT_MATMUL") == "dyn")
+    # int8 ragged_dot is opt-in (APERTIS_QUANT_MATMUL=dyn): the grouped
+    # GEMM's int32 accumulators leave the custom call unfused. Its cost on
+    # the GPU is not measured.
+    int8 = "w1_q" in expert_params and quant_ops.quant_mode() == "dyn"
     if not int8:
         expert_params = _maybe_dequant_experts(expert_params, x.dtype)
     num_experts = expert_params["ln_w"].shape[0]
@@ -582,15 +367,9 @@ def moe_ragged(
     xn = layer_norm(xs, expert_params["ln_w"][e_sorted],
                     expert_params["ln_b"][e_sorted], eps=layer_norm_eps)
     if int8:
-        # Dynamic-activation int8 grouped matmuls: the prefill/training
-        # grouped GEMMs run on the int8 MXU path (449 vs 190 bf16 TFLOP/s
-        # measured on dense decode-shaped chains) and the expert weights
-        # stream at int8 width with NO dequantized copy — the bf16 branch
-        # materialises dequantized (E, H, I) stacks per layer under
-        # XLA's ragged_dot lowering. Per-row expert scale gathers fuse
-        # like the existing bias gathers.
-        from apertis_llm_tpu.ops.pallas.quant_matmul import quantize_rows
-
+        # Dynamic-activation int8 grouped matmuls: the expert weights
+        # stream at int8 width with no dequantized copy.
+        quantize_rows = quant_ops.quantize_rows
         ep = expert_params
         xq, xss = quantize_rows(xn)
         acc1 = jax.lax.ragged_dot(xq, ep["w1_q"], group_sizes,

@@ -8,7 +8,7 @@ axis in which each device
   1. buckets its local (token, choice) pairs by DESTINATION device
      (``global_expert_id // experts_per_device``) into a static
      (n_devices, capacity, H) send buffer,
-  2. exchanges buffers with ONE ``jax.lax.all_to_all`` over ICI,
+  2. exchanges buffers with ONE ``jax.lax.all_to_all`` between devices,
   3. runs its local expert stack on the received tokens (sort-by-local-expert
      + ``jax.lax.ragged_dot`` grouped matmul, same engine as moe_ragged),
   4. returns outputs with a second ``all_to_all`` and combines them into the

@@ -8,7 +8,7 @@ Parity notes:
     the sqrt) with weight+bias.
 
 Both run in float32 internally and cast back, which keeps bf16 activations
-stable on TPU without a separate mixed-precision wrapper.
+stable without a separate mixed-precision wrapper.
 """
 
 from __future__ import annotations

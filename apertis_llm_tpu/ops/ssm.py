@@ -17,14 +17,11 @@ associative operator
 
 instead of the reference's cumsum-of-logs / cumulative-divide trick
 (core.py:324-335), which underflows for long sequences. The carry runs in
-float32. A fused Pallas kernel implements the same contract for the hot path
-(ops/pallas/ssm_scan.py); this module is the XLA reference implementation and
-the decode step.
+float32.
 """
 
 from __future__ import annotations
 
-import os
 from typing import Optional, Tuple
 
 import jax
@@ -37,20 +34,6 @@ def _combine(left, right):
     return a1 * a2, a2 * b1 + b2
 
 
-def _use_pallas() -> bool:
-    """Kernel dispatch: APERTIS_SSM_KERNEL=pallas|xla overrides; default is
-    the fused Pallas kernel on TPU, XLA elsewhere."""
-    choice = os.environ.get("APERTIS_SSM_KERNEL", "auto")
-    if choice == "pallas":
-        return True
-    if choice == "xla":
-        return False
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
 def selective_scan(
     a_bar: jnp.ndarray,   # (B, H, L, N) decay factors in (0, 1]
     b_term: jnp.ndarray,  # (B, H, L, N) recurrence inputs
@@ -60,14 +43,7 @@ def selective_scan(
 
     Returns ``(h, h_last)`` with ``h`` of shape (B, H, L, N) and ``h_last``
     the final carry (B, H, N) for chunked/sequence-parallel composition.
-    On TPU this dispatches to the fused Pallas kernel
-    (ops/pallas/ssm_scan.py); the associative-scan path below is the
-    portable reference implementation.
     """
-    if _use_pallas():
-        from apertis_llm_tpu.ops.pallas.ssm_scan import selective_scan_pallas
-
-        return selective_scan_pallas(a_bar, b_term, h_init)
     dtype = b_term.dtype
     a = a_bar.astype(jnp.float32)
     b = b_term.astype(jnp.float32)
@@ -93,38 +69,13 @@ def ssm_mix(
     (default ``b_term.dtype``) and ``h_last`` (B, H, N) float32.
 
     Masked (padded) steps become identity transitions (a=1, b=0) so
-    ``h_last`` equals the state after the last real token.
-
-    TPU path: the small (B, L, H) delta is transposed to time-minor order
-    and ``exp(delta*A)`` broadcasts DIRECTLY into the kernel's (rows, time)
-    layout, the gate multiply is fused into the scan kernel, and y comes
-    back through a single bf16 transpose — none of the round-2 path's
-    (B,L,H,N)<->(B,H,L,N) fp32 relayouts of the big operands remain
-    (reference recurrence: src/model/core.py:324-353).
+    ``h_last`` equals the state after the last real token (reference
+    recurrence: src/model/core.py:324-353).
     """
     b, l, h, n = b_term.shape
     out_dtype = jnp.dtype(out_dtype or b_term.dtype)
-    if _use_pallas():
-        from apertis_llm_tpu.ops.pallas.ssm_scan import gated_scan_2d
-
-        delta_t = delta.astype(jnp.float32).transpose(0, 2, 1)  # (B, H, L)
-        if seq_mask is not None:
-            mt = seq_mask[:, None, :].astype(jnp.float32)       # (B, 1, L)
-            delta_t = delta_t * mt  # exp(0 * A) = 1: identity transition
-        # (B, H, 1, L) * (1, H, N, 1) -> (B, H, N, L), already time-minor.
-        a2 = jnp.exp(delta_t[:, :, None, :]
-                     * a_cont.astype(jnp.float32)[None, :, :, None])
-        a2 = a2.reshape(b * h * n, l)
-        b_nat = b_term
-        if seq_mask is not None:
-            b_nat = b_nat * seq_mask[:, :, None, None].astype(b_nat.dtype)
-        b2 = b_nat.reshape(b, l, h * n).transpose(0, 2, 1).reshape(b * h * n, l)
-        c2 = c_mod.reshape(b, l, h * n).transpose(0, 2, 1).reshape(b * h * n, l)
-        y2, hlast = gated_scan_2d(a2, b2, c2, out_dtype)
-        y = y2.reshape(b, h * n, l).transpose(0, 2, 1)
-        return y, hlast.reshape(b, h, n)
-    # Portable XLA path: scan over axis 1 in the NATURAL layout (no
-    # transposes at all — associative_scan is layout-agnostic).
+    # Scan over axis 1 in the natural layout (associative_scan is
+    # layout-agnostic, so nothing is transposed).
     a_bar = jnp.exp(delta.astype(jnp.float32)[..., None]
                     * a_cont.astype(jnp.float32))               # (B, L, H, N)
     bb = b_term.astype(jnp.float32)
@@ -155,7 +106,7 @@ def depthwise_causal_conv(
 
     Matches torch ``Conv1d(C, C, K, groups=C, padding=K-1)`` truncated to the
     first L outputs (reference: core.py:308-312, 373). K is small (default 4)
-    so the unrolled shifted-sum keeps everything fusible on the VPU.
+    so the unrolled shifted-sum fuses into one elementwise pass.
     """
     k = weight.shape[-1]
     pad = jnp.pad(x, ((0, 0), (k - 1, 0), (0, 0)))

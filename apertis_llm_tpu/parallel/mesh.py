@@ -9,8 +9,11 @@ pipeline.py:462-466; TP/EP/SP are capability upgrades — SURVEY.md §2.8):
     ``pipeline_stages`` knob is set (layer depth sharded instead of widths).
   * ``expert`` — MoE expert sharding (dispatch all-to-all rides this axis).
   * ``seq``    — sequence/context parallelism: activations shard their L
-    axis; the SSM scan passes chunk summaries over ICI and the MHA path
-    runs ring attention.
+    axis; the SSM scan passes chunk summaries between devices and the MHA
+    path runs ring attention.
+
+Devices fill the mesh in order: the cards of one host are joined all to
+all, so the axes follow the algorithm, not a physical topology.
 
 All collectives are inserted by XLA from sharding annotations (GSPMD)
 except the SP scan/ring-attention bodies, which are explicit shard_maps.
@@ -59,9 +62,11 @@ def single_device_mesh() -> Mesh:
 
 def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None) -> bool:
-    """Multi-host bring-up: ``jax.distributed.initialize`` with arguments
-    from the environment when not given (the TPU-native replacement for the
-    reference's ``dist.init_process_group``, pipeline.py:439-441).
+    """Multi-process bring-up: ``jax.distributed.initialize`` with the
+    coordinator from the arguments or ``JAX_COORDINATOR_ADDRESS`` (the
+    replacement for the reference's ``dist.init_process_group``,
+    pipeline.py:439-441). ``num_processes`` and ``process_id`` must be
+    given with it: nothing on a GPU host tells JAX of a cluster.
 
     Returns True when running multi-process after the call. Safe to call on
     a single host (no-op if no coordinator is configured).
@@ -78,8 +83,6 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
                 coordinator_address=coordinator_address,
                 num_processes=num_processes,
                 process_id=process_id)
-        elif os.environ.get("TPU_WORKER_HOSTNAMES"):
-            jax.distributed.initialize()  # TPU-VM auto-discovery
     except Exception as e:  # single-host or already initialised
         import logging
 

@@ -4,7 +4,7 @@ The model's per-layer parameters are stacked along depth, so sharding that
 leading axis over a mesh dimension gives each device a contiguous block of
 layers (a stage). This module runs the classic GPipe schedule inside
 ``shard_map``: at tick t, stage s processes microbatch (t - s) and hands its
-activations to stage s+1 with one ``ppermute`` hop over ICI. Differentiating
+activations to stage s+1 with one ``ppermute`` hop. Differentiating
 through the schedule reverses the permutes automatically, so the same code
 path trains (GPipe with full activation stashing).
 

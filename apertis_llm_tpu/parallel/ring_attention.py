@@ -67,7 +67,7 @@ def ring_attention(
             l = l * alpha + jnp.sum(p, axis=-1, keepdims=True)
             acc = acc * alpha + jnp.einsum(
                 "bhqk,bhkd->bhqd", p, vc.astype(jnp.float32))
-            # Rotate K/V (+ validity) to the next device (ring over ICI).
+            # Rotate K/V (+ validity) to the next device (a ring over the mesh axis).
             perm = [(i, (i + 1) % n) for i in range(n)]
             kc = jax.lax.ppermute(kc, axis, perm)
             vc = jax.lax.ppermute(vc, axis, perm)

@@ -3,7 +3,7 @@
 The SSM's linear recurrence composes associatively across sequence chunks,
 so long-context training can shard L over a mesh axis: each device scans its
 local chunk, the tiny (decay-product, final-state) chunk summaries are
-exchanged with one all-gather over ICI, and an exclusive prefix-combine
+exchanged with one all-gather between devices, and an exclusive prefix-combine
 gives every device its incoming state. This single mechanism covers the
 CP/ring-attention role for the SSM path (SURVEY.md §2.8: the reference has
 no sequence parallelism of any kind).

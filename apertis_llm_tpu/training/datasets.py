@@ -66,7 +66,7 @@ class ApertisPretrainDataset:
             raise ValueError("need vocab_dict or hf_tokenizer")
         self.data = _load_jsonl(data_path, ("text",))
         self.vocab = vocab_dict
-        # TPU-repo extension: subword pre-training via an HF tokenizer
+        # Extension of this repo: subword pre-training via an HF tokenizer
         # (the reference pretrain path is whitespace-only). Each document
         # is encoded without special tokens and terminated with EOS.
         self.hf_tokenizer = hf_tokenizer

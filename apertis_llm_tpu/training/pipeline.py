@@ -65,7 +65,7 @@ def _resolve_tokenizer(data_cfg: Dict, is_fine_tuning: bool):
     special_ids dict, tokenizer_path)."""
     tokenizer_path = data_cfg.get("tokenizer_path")
     # `use_hf_tokenizer` works for BOTH pre-training and fine-tuning (a
-    # TPU-repo extension: the reference pretrain path is whitespace-only,
+    # extension of this repo: the reference pretrain path is whitespace-only,
     # reference pipeline.py:118-143); the reference's finetune-only key is
     # still honoured.
     use_hf = (data_cfg.get("use_hf_tokenizer", False)
@@ -220,7 +220,7 @@ def train_from_config(config_path: str,
 
 
 def get_available_devices() -> list:
-    """Enumerate accelerator devices for the UI (the TPU analogue of the
+    """Enumerate accelerator devices for the UI (the JAX analogue of the
     reference's get_available_gpus, pipeline.py:701-707)."""
     import jax
 

@@ -1,6 +1,6 @@
 """Pipeline-parallel train step: GPipe schedule with an in-stage loss tail.
 
-Wires ``parallel.pipeline``'s schedule into real training (VERDICT r1 item 2):
+Wires ``parallel.pipeline``'s schedule into real training:
 the trainer's ``pipeline_stages`` knob shards layer DEPTH over the ``model``
 mesh axis; each device runs a contiguous block of layers, microbatches flow
 stage-to-stage with one ``ppermute`` hop per tick, and the loss is computed

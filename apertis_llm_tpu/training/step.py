@@ -5,7 +5,7 @@ AdamW with weight decay masked off for biases and norm parameters, OneCycle
 cosine LR (pct_start=0.1, div_factor=25, final_div_factor=1e4), global-norm
 gradient clipping, optional gradient accumulation (optax.MultiSteps).
 
-TPU-native differences: bf16 compute with float32 master params/optimizer
+Differences from the reference: bf16 compute with float32 master params/optimizer
 state (instead of CUDA AMP + GradScaler — bf16 needs no loss scaling),
 ``jax.checkpoint`` rematerialisation instead of torch checkpointing, and the
 whole step is one jitted program whose gradient all-reduce is inserted by

@@ -5,7 +5,7 @@ src/training/pipeline.py:387-698): AdamW + OneCycle cosine, gradient
 accumulation and clipping, periodic/epoch/best-val/final checkpointing,
 wandb logging (optional), cooperative stop_event cancellation, eval loop.
 
-TPU-native replacements:
+JAX replacements:
   * DDP/DataParallel/DistributedSampler -> one (data, model, expert) mesh;
     the jitted train step's gradient all-reduce is inserted by GSPMD.
   * CUDA AMP fp16 + GradScaler -> bf16 compute, float32 master params
@@ -14,7 +14,7 @@ TPU-native replacements:
     (config.remat).
   * OOM-adaptive dynamic batch halving -> static shapes by construction;
     the flag is accepted and logged as a no-op (documented deviation).
-  * Checkpoints carry full train state (orbax) plus reference-compatible
+  * Checkpoints carry full train state (numpy) plus reference-compatible
     weights.
 """
 
@@ -218,11 +218,12 @@ class ApertisTrainer:
             raise ValueError(
                 f"batch_size {batch_size} must divide by data x expert "
                 f"parallel = {data_par * self.expert_par}")
-        if self.seq_par > 1 or use_ep:
+        if self.seq_par > 1 or use_ep or self.mesh.size > 1:
             # Enter the parallel context INSIDE the jitted fns so it is
             # active at trace time and the model routes through the
             # sequence-sharded scan / ring attention / EP all-to-all
-            # (parallel/context.py).
+            # (parallel/context.py), and single-device kernels stand down
+            # under any multi-device mesh.
             from apertis_llm_tpu.parallel.context import parallel_context
 
             mesh = self.mesh
@@ -354,8 +355,7 @@ class ApertisTrainer:
                 # state chains step-to-step asynchronously; values are
                 # fetched every `sync_every` steps (and at epoch end), which
                 # both bounds in-flight buffers and forces execution on
-                # backends with lazy dispatch. (VERDICT r1 weak #3: the old
-                # float() here blocked the device every microbatch.)
+                # backends with lazy dispatch. here blocked the device every microbatch.)
                 device_losses.append(metrics["loss"])
                 timer.tick()
                 if len(device_losses) >= sync_every:

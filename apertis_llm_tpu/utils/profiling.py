@@ -62,22 +62,19 @@ class StepTimer:
         return out
 
 
-# Known per-chip bf16 peaks (TFLOP/s) keyed by substrings of
-# ``jax.devices()[0].device_kind``, most-specific first ("v5p" must win
-# over "v5"; v5e reports "TPU v5 lite" / "TPU v5e" depending on runtime).
-_TPU_PEAK_TFLOPS_BF16 = (
-    ("v6", 918.0),  # Trillium
-    ("v5p", 459.0),
-    ("v5", 197.0),  # v5e / v5 litepod
-    ("v4", 275.0),
+# Dense bf16 tensor-core peaks (TFLOP/s) keyed by a substring of
+# ``jax.devices()[0].device_kind``. Source: NVIDIA's H100 data sheet (SXM
+# part, dense, at the 700 W power limit).
+_PEAK_TFLOPS_BF16 = (
+    ("h100", 989.0),
 )
 
 
-def device_peak_tflops() -> Optional[float]:
-    """Best-known bf16 peak of the local accelerator, for MFU accounting.
+def device_peak_tflops(device_kind: Optional[str] = None) -> Optional[float]:
+    """bf16 peak of the local accelerator, for MFU accounting.
 
     ``APERTIS_PEAK_TFLOPS`` overrides (any backend, incl. CPU test runs);
-    returns None when the device kind is unknown — callers should then
+    returns None when the device kind is not in the table — callers then
     skip MFU rather than report one against a made-up peak.
     """
     import os
@@ -88,10 +85,12 @@ def device_peak_tflops() -> Optional[float]:
             return float(env)
         except ValueError:
             logger.warning("Unparseable APERTIS_PEAK_TFLOPS=%r", env)
-    import jax
+    if device_kind is None:
+        import jax
 
-    kind = jax.devices()[0].device_kind.lower()
-    for needle, peak in _TPU_PEAK_TFLOPS_BF16:
+        device_kind = jax.devices()[0].device_kind
+    kind = device_kind.lower()
+    for needle, peak in _PEAK_TFLOPS_BF16:
         if needle in kind:
             return peak
     return None

@@ -17,7 +17,7 @@ seeded; re-running reproduces the dataset bit-for-bit.
 
 Usage:
     python examples/quality_eval.py [--workdir /tmp/apertis_quality] \
-        [--epochs 30] [--platform cpu|tpu]
+        [--epochs 30] [--platform cpu|cuda]
 """
 
 from __future__ import annotations
@@ -161,7 +161,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--workdir", default="/tmp/apertis_quality")
     ap.add_argument("--epochs", type=int, default=30)
-    ap.add_argument("--platform", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=[None, "cpu", "cuda"])
     ap.add_argument("--attention", default="selective_ssm",
                     choices=["selective_ssm", "standard_mha"])
     ap.add_argument("--moe", action="store_true",

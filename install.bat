@@ -1,6 +1,6 @@
 @echo off
-REM Apertis-TPU installer for Windows (reference: install.bat).
-REM TPUs are not available on Windows; installs the CPU build, which runs
+REM Apertis installer for Windows (reference: install.bat).
+REM JAX's CUDA build is Linux-only; installs the CPU build, which runs
 REM the full framework (multi-device tests use virtual CPU devices).
 
 python -c "import sys; assert sys.version_info >= (3, 10)" || (

@@ -1,11 +1,11 @@
 #!/usr/bin/env bash
-# Apertis-TPU installer (reference: install.sh).
+# Apertis installer (reference: install.sh).
 # Installs the package with the right JAX build for the detected platform.
 set -euo pipefail
 
 PYTHON=${PYTHON:-python3}
 
-echo "== Apertis-TPU installer =="
+echo "== Apertis installer =="
 $PYTHON -c "import sys; assert sys.version_info >= (3, 10), 'Python >= 3.10 required'"
 
 EXTRAS="hf,ui,data"
@@ -13,13 +13,11 @@ if [[ "${1:-}" == "--dev" ]]; then
     EXTRAS="$EXTRAS,dev,torch-interop"
 fi
 
-if $PYTHON -c "import pathlib; assert pathlib.Path('/dev/accel0').exists()" 2>/dev/null \
-   || [[ -n "${TPU_NAME:-}" ]]; then
-    echo "TPU detected: installing jax[tpu]"
-    $PYTHON -m pip install -U "jax[tpu]" \
-        -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
+if command -v nvidia-smi >/dev/null 2>&1 && nvidia-smi -L >/dev/null 2>&1; then
+    echo "NVIDIA GPU detected: installing jax[cuda12]"
+    $PYTHON -m pip install -U "jax[cuda12]"
 else
-    echo "No TPU detected: installing CPU jax (the framework still runs;"
+    echo "No NVIDIA GPU detected: installing CPU jax (the framework still runs;"
     echo "multi-device tests use virtual CPU devices)"
     $PYTHON -m pip install -U jax
 fi

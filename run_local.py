@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """One-command local launcher for the Apertis AI Studio.
 
-The TPU/portable counterpart of the reference's Windows launcher
+The portable counterpart of the reference's Windows launcher
 (reference: run_windows.py:191-292): check dependencies, make sure a model
 exists (creating a small test model if not), launch the web UI, and open a
 browser.

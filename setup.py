@@ -1,9 +1,9 @@
 from setuptools import find_packages, setup
 
 setup(
-    name="apertis-llm-tpu",
+    name="apertis-llm",
     version="0.1.0",
-    description="TPU-native (JAX/XLA/Pallas) Apertis LLM framework",
+    description="Apertis LLM framework in JAX (XLA) for NVIDIA GPUs",
     long_description=open("README.md", encoding="utf-8").read(),
     long_description_content_type="text/markdown",
     packages=find_packages(include=["apertis_llm_tpu", "apertis_llm_tpu.*"]),

@@ -1,7 +1,7 @@
 """Split-program generation (prefill+first-token / dynamic-length decode
 loop) must be token-exact with the monolithic whole-generation program.
 
-The split path is the serving bring-up fix (VERDICT r3 item 1): the prefill
+The split path is the serving bring-up fix: the prefill
 graph compiles once per (bucket, batch, sampling mode) and ONE decode-loop
 program — generation length a dynamic scalar — serves every
 ``max_new_tokens`` up to ``config.decode_max_length``.

@@ -244,22 +244,17 @@ def test_decode_unroll_parity(monkeypatch):
 
 
 def test_compile_effort_knob_parses_and_preserves_tokens(monkeypatch):
-    """APERTIS_COMPILE_EFFORT / APERTIS_COMPILE_LHS feed XLA build options
-    into the engine's serving programs (bring-up knobs — docs/README.md
-    "Serving bring-up"). Effort is a scheduling/optimisation trade: greedy
-    tokens must be unchanged. The TPU-only LHS flag is parse-checked."""
+    """APERTIS_COMPILE_EFFORT feeds XLA's exec_time_optimization_effort
+    into the engine's prefill programs (not the decode loop). Effort is a
+    scheduling/optimisation trade: greedy tokens must be unchanged."""
     from apertis_llm_tpu.inference.engine import (InferenceEngine,
                                                   _compiler_options)
     from apertis_llm_tpu.models.params import init_params
 
     assert _compiler_options() is None
     monkeypatch.setenv("APERTIS_COMPILE_EFFORT", "-1.0")
-    monkeypatch.setenv("APERTIS_COMPILE_LHS", "0")
-    assert _compiler_options() == {
-        "exec_time_optimization_effort": -1.0,
-        "xla_tpu_enable_latency_hiding_scheduler": False,
-    }
-    monkeypatch.delenv("APERTIS_COMPILE_LHS")  # TPU-only option
+    assert _compiler_options() == {"exec_time_optimization_effort": -1.0}
+    assert _compiler_options(decode=True) is None
 
     config = ApertisConfig.from_dict(dict(
         BASE, attention_type="selective_ssm", ssm_d_state=8))
@@ -273,3 +268,41 @@ def test_compile_effort_knob_parses_and_preserves_tokens(monkeypatch):
         prompt, max_new_tokens=8, eos_token_id=(), do_sample=False)
     np.testing.assert_array_equal(np.asarray(out_effort),
                                   np.asarray(out_default))
+
+
+@pytest.mark.parametrize("variant", ["mha", "ssm", "ssm_images", "moe"])
+def test_last_token_logits_match_full_forward(variant):
+    """InferenceEngine.last_token_logits (the serving prefill program,
+    bucket-padded) equals the full forward's logits at each prompt's last
+    token: the check chip_smoke.py runs against its float32 reference."""
+    from apertis_llm_tpu.models import apertis as model_lib
+    from apertis_llm_tpu.models.params import init_params
+
+    overrides = {
+        "mha": dict(attention_type="standard_mha"),
+        "ssm": dict(attention_type="selective_ssm", ssm_d_state=8),
+        "ssm_images": dict(attention_type="selective_ssm", ssm_d_state=8,
+                           multimodal=True, image_size=32,
+                           vision_patch_size=8, vision_embed_dim=32,
+                           vision_layers=1, vision_heads=2),
+        "moe": dict(attention_type="selective_ssm", ssm_d_state=8,
+                    use_expert_system=True, num_experts=4,
+                    experts_per_token=2),
+    }[variant]
+    config = ApertisConfig.from_dict(dict(BASE, **overrides))
+    params = init_params(jax.random.PRNGKey(2), config)
+    r = np.random.default_rng(5)
+    ids = r.integers(4, BASE["vocab_size"], (3, 13)).astype(np.int32)
+    pixels = (r.integers(0, 255, (3, 32, 32, 3)).astype(np.uint8)
+              if variant == "ssm_images" else None)
+    got = InferenceEngine(config, params).last_token_logits(ids, pixels)
+    want = model_lib.forward(
+        params, config, jnp.asarray(ids),
+        pixel_values=None if pixels is None else jnp.asarray(pixels)
+    ).logits[:, -1]
+    assert got.shape == (3, BASE["vocab_size"])
+    # The engine serves MoE decode-sized token counts through the int8 fat
+    # expert stack it attaches (models/moe_fuse.py): int8 rounding there.
+    atol = 0.06 * float(jnp.max(jnp.abs(want))) if variant == "moe" else 1e-5
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-5, atol=atol)

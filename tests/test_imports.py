@@ -16,21 +16,29 @@ MODULES = [
     "apertis_llm_tpu.ops.norms",
     "apertis_llm_tpu.ops.sampling",
     "apertis_llm_tpu.ops.activations",
-    "apertis_llm_tpu.ops.pallas.ssm_scan",
-    "apertis_llm_tpu.ops.pallas.flash_attention",
+    "apertis_llm_tpu.ops.quant",
+    "apertis_llm_tpu.ops.moe_ep",
+    "apertis_llm_tpu.backend",
     "apertis_llm_tpu.models.apertis",
     "apertis_llm_tpu.models.params",
     "apertis_llm_tpu.models.factory",
     "apertis_llm_tpu.models.convert",
     "apertis_llm_tpu.models.vit",
+    "apertis_llm_tpu.models.quantize",
+    "apertis_llm_tpu.models.moe_fuse",
     "apertis_llm_tpu.parallel.mesh",
     "apertis_llm_tpu.parallel.sharding",
+    "apertis_llm_tpu.parallel.context",
+    "apertis_llm_tpu.parallel.sequence",
+    "apertis_llm_tpu.parallel.pipeline",
+    "apertis_llm_tpu.parallel.ring_attention",
     "apertis_llm_tpu.inference.engine",
     "apertis_llm_tpu.inference.interface",
     "apertis_llm_tpu.inference.ui",
     "apertis_llm_tpu.training",
     "apertis_llm_tpu.training.step",
     "apertis_llm_tpu.training.trainer",
+    "apertis_llm_tpu.training.pp_step",
     "apertis_llm_tpu.training.pipeline",
     "apertis_llm_tpu.training.datasets",
     "apertis_llm_tpu.training.azr",
@@ -46,6 +54,7 @@ MODULES = [
     "apertis_llm_tpu.utils.images",
     "apertis_llm_tpu.utils.checkpoint",
     "apertis_llm_tpu.utils.profiling",
+    "apertis_llm_tpu.utils.jax_cache",
     "apertis_llm_tpu.native",
 ]
 

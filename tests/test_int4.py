@@ -1,25 +1,20 @@
-"""w4a8 serving quantization (APERTIS_QUANT_BITS=4).
+"""int4-packed linears (``w_q4``/``w_s``/``w_sh``).
 
 Covers the packing scheme (models/quantize.quantize_weight_int4 — group-128
-interleaved nibble pairs), the XLA fallback consumers (_linear /
-moe_dense_fat), the fused decode kernels' packed-operand variants
-(ffn_fused / moe_ffn, interpret mode on CPU), and the decode_step dispatch
-route. Reference counterpart: none — the reference serves fp16/bf16
-(src/inference/interface.py); int4 is a TPU-serving bandwidth lever on top
-of the round-2 int8 scheme.
+interleaved nibble pairs) and its consumer, the in-graph unpack of
+models/apertis._linear, at decode and prefill row counts. Reference
+counterpart: none — the reference serves fp16/bf16
+(src/inference/interface.py).
 """
-
-import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from apertis_llm_tpu.ops import quant as quant_ops
 from apertis_llm_tpu.models.quantize import (
-    dequantize_int4, quantize_params, quantize_weight, quantize_weight_int4,
-    unpack_int4)
-from apertis_llm_tpu.ops.pallas.quant_matmul import quantize_rows
+    dequantize_int4, quantize_weight_int4, unpack_int4)
 
 
 def test_pack_unpack_bijection():
@@ -95,131 +90,47 @@ def test_linear_int4_fallback_matches_dequant():
     assert float(jnp.max(jnp.abs(got - ref))) < 1e-4
 
 
-def test_attach_int4_ffn_pack():
-    """w4a8 is a DECODE-ONLY format: quantize_params stays int8 (prefill
-    reads int8 — in-graph unpacks poisoned the prefill compile, docs) and
-    attach_int4_ffn adds the packed decode copy under layers.ffn["w4"]."""
-    from apertis_llm_tpu.config import ApertisConfig
-    from apertis_llm_tpu.models.params import init_params
-    from apertis_llm_tpu.models.quantize import attach_int4_ffn
-
-    config = ApertisConfig(
-        vocab_size=128, hidden_size=128, num_hidden_layers=2,
-        num_attention_heads=8, intermediate_size=256,
-        attention_type="selective_ssm", ssm_d_state=16,
-        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
-    params = init_params(jax.random.PRNGKey(0), config)
-    os.environ["APERTIS_QUANT_BITS"] = "4"
-    try:
-        q = quantize_params(params, min_size=0)
-    finally:
-        del os.environ["APERTIS_QUANT_BITS"]
-    ffn = q["layers"]["ffn"]
-    assert "w_q" in ffn["w1"] and "w_q4" not in ffn["w1"]   # base stays int8
-    q = attach_int4_ffn(q)
-    pack = q["layers"]["ffn"]["w4"]
-    assert pack["w1"]["w_q4"].shape[-2] == 128 // 2
-    assert pack["w2"]["w_q4"].shape[-2] == 256 // 2
-    assert pack["w1"]["w_sh"].shape[-2] == 128 // 128   # group-wise shifts
-    assert pack["w2"]["w_sh"].shape[-2] == 256 // 128
-    # idempotent; int8 base untouched; mixer stays int8
-    assert attach_int4_ffn(q) is q or "w4" in attach_int4_ffn(q)["layers"]["ffn"]
-    assert "w_q" in q["layers"]["ffn"]["w1"]
-    assert "w_q" in q["layers"]["attn"]["in_proj_x"]
-
-
-def _ffn_int4_reference(xq, xs, w1p, w1s, w1h, b1, w2p, w2s, w2h, b2, li):
-    acc = (xq.astype(jnp.float32)
-           @ unpack_int4(w1p[li], w1h[li]).astype(jnp.float32)
-           ) * xs * w1s[li] + b1[li]
-    hid = jax.nn.gelu(acc, approximate=False)
-    return hid @ (unpack_int4(w2p[li], w2h[li]).astype(jnp.float32)
-                  * w2s[li]) + b2[li]
-
-
-def test_ffn_kernel_int4_matches_reference():
-    from apertis_llm_tpu.ops.pallas.ffn_fused import ffn_decode_fused
+@pytest.mark.parametrize("rows", [4, quant_ops.DYN_MIN_ROWS])
+def test_linear_int4_both_dispatch_paths_match_dequant(rows):
+    """Below DYN_MIN_ROWS the unpacked weights take the weight-only dequant;
+    from it up, the dynamic int8 dot (activation rounding only)."""
+    from apertis_llm_tpu.models.apertis import _linear
 
     r = np.random.default_rng(3)
-    s_, h, i, layers = 48, 256, 512, 3
-    w1 = jnp.asarray(r.standard_normal((layers, h, i)) * 0.05, jnp.float32)
-    b1 = jnp.asarray(r.standard_normal((layers, i)) * 0.02, jnp.float32)
-    w2 = jnp.asarray(r.standard_normal((layers, i, h)) * 0.05, jnp.float32)
-    b2 = jnp.asarray(r.standard_normal((layers, h)) * 0.02, jnp.float32)
-    x = jnp.asarray(r.standard_normal((s_, h)) * 0.5, jnp.bfloat16)
-    w1p, w1s, w1h = quantize_weight_int4(w1)
-    w2p, w2s, w2h = quantize_weight_int4(w2)
-    xq, xs = quantize_rows(x)
-    for li in range(layers):
-        got = ffn_decode_fused(xq, xs, w1p, w1s, b1, w2p, w2s, b2,
-                               layer_idx=li, out_dtype=jnp.float32,
-                               block_n=128, int4=True,
-                               w1_sh=w1h, w2_sh=w2h)
-        ref = _ffn_int4_reference(xq, xs, w1p, w1s, w1h, b1,
-                                  w2p, w2s, w2h, b2, li)
-        scale = float(jnp.max(jnp.abs(ref))) + 1e-6
-        assert float(jnp.max(jnp.abs(got - ref))) / scale < 2e-2, li
+    w = jnp.asarray(r.standard_normal((256, 128)) * 0.05, jnp.float32)
+    x = jnp.asarray(r.standard_normal((rows, 256)), jnp.float32)
+    p, s, sh = quantize_weight_int4(w)
+    got = _linear({"w_q4": p, "w_s": s, "w_sh": sh}, x)
+    ref = x @ dequantize_int4(p, s, sh)
+    rel = float(jnp.max(jnp.abs(got - ref)) / jnp.max(jnp.abs(ref)))
+    assert rel < 0.02, rel
 
 
-def _tiny_moe_experts(seed, e=4, h=128, i=256, layers=2):
-    r = np.random.default_rng(seed)
-    return {
-        "ln_w": jnp.asarray(1 + 0.1 * r.standard_normal((layers, e, h)),
-                            jnp.float32),
-        "ln_b": jnp.asarray(0.05 * r.standard_normal((layers, e, h)),
-                            jnp.float32),
-        "w1": jnp.asarray(0.05 * r.standard_normal((layers, e, h, i)),
-                          jnp.float32),
-        "b1": jnp.asarray(0.02 * r.standard_normal((layers, e, i)),
-                          jnp.float32),
-        "w2": jnp.asarray(0.05 * r.standard_normal((layers, e, i, h)),
-                          jnp.float32),
-        "b2": jnp.asarray(0.02 * r.standard_normal((layers, e, h)),
-                          jnp.float32),
-    }
+def _int4_ffn_tree(config, seed=0):
+    """Params whose dense-FFN weights are int4-packed, and the same tree
+    with those weights dequantized to float32."""
+    from apertis_llm_tpu.models.params import init_params
+
+    params = init_params(jax.random.PRNGKey(seed), config)
+    packed = jax.tree.map(lambda x: x, params)
+    ref = jax.tree.map(lambda x: x, params)
+    for name in ("w1", "w2"):
+        w = params["layers"]["ffn"][name]["w"]
+        q4, sc, sh = quantize_weight_int4(w)
+        packed["layers"]["ffn"][name] = {
+            "w_q4": q4, "w_s": sc, "w_sh": sh,
+            "b": params["layers"]["ffn"][name]["b"]}
+        ref["layers"]["ffn"][name] = {
+            "w": dequantize_int4(q4, sc, sh),
+            "b": params["layers"]["ffn"][name]["b"]}
+    return packed, ref
 
 
-def test_fat_stack_int4_and_kernel_parity():
-    """fuse_moe_decode_params_fat(bits=4) emits packed stacks; the fat
-    kernel's int4 path matches the XLA int4 fat path on the same weights."""
-    from apertis_llm_tpu.models.moe_fuse import fuse_moe_decode_params_fat
-    from apertis_llm_tpu.ops.moe import (RouterOutput, moe_dense_fat,
-                                         moe_dense_fat_kernel)
-
-    experts = _tiny_moe_experts(4)
-    fat4 = fuse_moe_decode_params_fat(experts, bits=4)
-    assert "w1t_q4" in fat4 and "w2t_q4" in fat4
-    layers, e, h, i = 2, 4, 128, 256
-    assert fat4["w1t_q4"].shape == (layers, h // 2, e * i)
-    assert fat4["w2t_q4"].shape == (layers, e * i // 2, h)
-    assert fat4["w1t_sh"].shape == (layers, h // 128, e * i)
-    assert fat4["w2t_sh"].shape == (layers, e * i // 128, h)
-
-    r = np.random.default_rng(5)
-    s_ = 16
-    x = jnp.asarray(r.standard_normal((s_, h)) * 0.5, jnp.bfloat16)
-    routing = RouterOutput(
-        weights=jnp.asarray(r.random((s_, 2)), jnp.float32),
-        indices=jnp.asarray(r.integers(0, e, (s_, 2)), jnp.int32),
-        lb_loss=jnp.zeros(()), rz_loss=jnp.zeros(()))
-    for li in range(layers):
-        ep = {"b2": experts["b2"][li],
-              "fat": jax.tree.map(lambda t: t[li], fat4)}
-        got_xla = moe_dense_fat(x, routing, ep, "gelu", 1e-5)
-        got_kern = moe_dense_fat_kernel(x, routing, ep, "gelu", 1e-5)
-        scale = float(jnp.max(jnp.abs(got_xla))) + 1e-6
-        err = float(jnp.max(jnp.abs(got_kern.astype(jnp.float32)
-                                    - got_xla.astype(jnp.float32)))) / scale
-        assert err < 3e-2, (li, err)
-
-
-def test_decode_step_int4_routes_and_matches_xla():
-    """decode_step with an int4-quantized tree routes through the fused
-    kernel (force) and stays within the requantization band of the int4
-    XLA path; argmax tokens agree."""
+def test_decode_step_int4_tree_matches_dequant():
+    """A decode step on an int4-packed FFN tree equals the step on the
+    dequantized float tree up to the weight-only path's rounding."""
     from apertis_llm_tpu.config import ApertisConfig
     from apertis_llm_tpu.models import apertis as model_lib
-    from apertis_llm_tpu.models.params import init_params
 
     config = ApertisConfig(
         vocab_size=128, hidden_size=128, num_hidden_layers=2,
@@ -227,76 +138,35 @@ def test_decode_step_int4_routes_and_matches_xla():
         attention_type="selective_ssm", ssm_d_state=16,
         hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
         max_position_embeddings=64)
-    from apertis_llm_tpu.models.quantize import attach_int4_ffn
-
-    params = init_params(jax.random.PRNGKey(0), config)
-    qparams = attach_int4_ffn(quantize_params(params, min_size=0))
-    assert "w4" in qparams["layers"]["ffn"]
+    packed, ref = _int4_ffn_tree(config)
     cache = model_lib.init_cache(config, 4, max_length=16)
     toks = jnp.asarray([3, 5, 7, 9], jnp.int32)
     t = jnp.asarray(0, jnp.int32)
-
-    # int4-XLA reference: the SAME packed weights in the main FFN slots
-    # (dense_stack stands down off-TPU, so _linear's in-graph unpack runs).
-    xla_params = dict(qparams)
-    xla_params["layers"] = dict(qparams["layers"])
-    ffn_xla = {k: v for k, v in qparams["layers"]["ffn"].items()
-               if k not in ("w1", "w2", "w4")}
-    pack = qparams["layers"]["ffn"]["w4"]
-    ffn_xla["w1"], ffn_xla["w2"] = pack["w1"], pack["w2"]
-    xla_params["layers"]["ffn"] = ffn_xla
-    logits_plain, _ = model_lib.decode_step(xla_params, config, cache,
-                                            toks, t)
-    os.environ["APERTIS_FFN_FUSED"] = "force"
-    try:
-        jaxpr = jax.make_jaxpr(
-            lambda p, c: model_lib.decode_step(p, config, c, toks, t)
-        )(qparams, cache)
-        assert "pallas_call" in str(jaxpr), "int4 fused FFN not routed"
-        logits_fused, _ = model_lib.decode_step(qparams, config, cache,
-                                                toks, t)
-    finally:
-        del os.environ["APERTIS_FFN_FUSED"]
-    scale = float(jnp.max(jnp.abs(logits_plain))) + 1e-6
-    err = float(jnp.max(jnp.abs(logits_fused - logits_plain))) / scale
-    assert err < 3e-2, err
-    assert jnp.array_equal(jnp.argmax(logits_plain, -1),
-                           jnp.argmax(logits_fused, -1))
+    got, _ = model_lib.decode_step(packed, config, cache, toks, t)
+    want, _ = model_lib.decode_step(ref, config, cache, toks, t)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=1e-4, atol=1e-4)
 
 
-def test_attach_int4_ffn_misaligned_is_noop():
-    """Contraction dims that aren't 128-aligned (e.g. hidden 192) must
-    leave the tree untouched — int8 decode — instead of crashing (the
-    attach gate mirrors quantize_weight_int4's group constraint)."""
+def test_forward_int4_tree_matches_dequant_at_prefill_rows():
+    """Full-sequence forward (>= DYN_MIN_ROWS rows: dynamic int8 dot on the
+    unpacked weights) stays within activation rounding of the float tree;
+    greedy tokens agree."""
     from apertis_llm_tpu.config import ApertisConfig
-    from apertis_llm_tpu.models.params import init_params
-    from apertis_llm_tpu.models.quantize import attach_int4_ffn
+    from apertis_llm_tpu.models import apertis as model_lib
 
     config = ApertisConfig(
-        vocab_size=128, hidden_size=192, num_hidden_layers=2,
+        vocab_size=128, hidden_size=128, num_hidden_layers=2,
         num_attention_heads=8, intermediate_size=256,
         attention_type="selective_ssm", ssm_d_state=16,
-        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
-    params = init_params(jax.random.PRNGKey(0), config)
-    q = attach_int4_ffn(quantize_params(params, min_size=0))
-    assert "w4" not in q["layers"]["ffn"]
-    assert "w_q" in q["layers"]["ffn"]["w1"]
-
-
-def test_fat_stack_int4_misaligned_intermediate_falls_back_to_int8():
-    """fuse_moe_decode_params_fat must serve int8 when the PER-EXPERT
-    intermediate isn't 128-tileable (the fat kernel's tile loop would pick
-    bn=i and the int4 unpack rejects it at trace time)."""
-    from apertis_llm_tpu.models.moe_fuse import fuse_moe_decode_params_fat
-
-    r = np.random.default_rng(7)
-    e, h, i = 4, 128, 192     # e*i = 768 is 128-aligned; i itself is not
-    experts = {
-        "ln_w": jnp.asarray(r.standard_normal((e, h)), jnp.float32),
-        "ln_b": jnp.asarray(r.standard_normal((e, h)), jnp.float32),
-        "w1": jnp.asarray(r.standard_normal((e, h, i)) * 0.05, jnp.float32),
-        "b1": jnp.asarray(r.standard_normal((e, i)) * 0.01, jnp.float32),
-        "w2": jnp.asarray(r.standard_normal((e, i, h)) * 0.05, jnp.float32),
-    }
-    fat = fuse_moe_decode_params_fat(experts, bits=4)
-    assert "w1t_q" in fat and "w1t_q4" not in fat
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        max_position_embeddings=256)
+    packed, ref = _int4_ffn_tree(config, seed=1)
+    ids = jnp.asarray(np.random.default_rng(4).integers(
+        4, 128, (quant_ops.DYN_MIN_ROWS // 128, 128)))
+    got = model_lib.forward(packed, config, ids).logits
+    want = model_lib.forward(ref, config, ids).logits
+    scale = float(jnp.max(jnp.abs(want)))
+    assert float(jnp.max(jnp.abs(got - want))) / scale < 0.03
+    agree = float(jnp.mean(jnp.argmax(got, -1) == jnp.argmax(want, -1)))
+    assert agree > 0.95, agree

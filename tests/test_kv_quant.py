@@ -1,12 +1,12 @@
 """int8 KV cache for MHA serving (APERTIS_QUANT_KV=1).
 
-The MHA decode step's dominant HBM term is the full-cache attention read;
+The MHA decode step's largest memory read is the whole KV cache;
 per-slot int8 K/V halve it (and the cache footprint). Scales dequantize
 exactly inside the score/context contractions
 (ops/attention.decode_attention_selfterm), so the only numerics delta vs
 the bf16 cache is the per-slot int8 rounding. Reference counterpart: none —
 the reference's KV cache is fp16/fp32 (src/model/core.py:705-832); this is
-a TPU-serving bandwidth/memory lever.
+a serving bandwidth/memory lever.
 """
 
 import os

@@ -63,7 +63,7 @@ def test_bucket_rounding_never_truncates():
 
 @pytest.mark.parametrize("plen", [2100, 8192])
 def test_long_prompt_generate_token_exact(plen):
-    """Prompts past the 2048 bucket decode token-exact (VERDICT weak #1)."""
+    """Prompts past the 2048 bucket decode token-exact."""
     config, params, engine = _ssm_engine()
     rng = np.random.default_rng(plen)
     prompt = rng.integers(1, config.vocab_size, size=(1, plen)).astype(np.int32)

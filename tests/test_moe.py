@@ -55,7 +55,7 @@ def test_ragged_int8_matches_bf16_path():
         qparams[key + "_q"], qparams[key + "_s"] = q, sc
         del qparams[key]
     ref = moe_ops.moe_ragged(x, routing, params, "gelu", 1e-12)
-    os.environ["APERTIS_QUANT_MATMUL"] = "dyn"   # force int8 off-TPU
+    os.environ["APERTIS_QUANT_MATMUL"] = "dyn"   # int8 ragged_dot is opt-in
     try:
         got = moe_ops.moe_ragged(x, routing, qparams, "gelu", 1e-12)
     finally:
@@ -146,7 +146,7 @@ def test_ragged_grads_match_dense():
 
 
 def test_dense_int8_dyn_close_to_fp(monkeypatch):
-    """The int8-MXU dense path (decode hot path on TPU) stays within dynamic
+    """The dynamic int8 dense path (the large-row MoE decode path) stays within dynamic
     activation-quantization error of the fp dense combine."""
     import numpy as np
     from apertis_llm_tpu.models.quantize import quantize_params

@@ -1,6 +1,7 @@
-"""Fused dense-MoE decode path (models/moe_fuse.py + ops/moe.moe_dense_fused).
+"""MoE serving paths: the fat decode layout (models/moe_fuse.py +
+ops/moe.moe_dense_fat) and the ragged prefill (ops/moe.moe_ragged).
 
-The fused path re-associates the all-expert combine into two stacked int8
+The fat path re-associates the all-expert combine into two plain int8
 GEMMs; its only deviation from ops/moe.moe_dense is int8 rounding, so the
 tests pin tolerance against the float dense path and exercise the engine
 attach/dispatch wiring end to end.
@@ -13,7 +14,7 @@ import pytest
 
 from apertis_llm_tpu.config import ApertisConfig
 from apertis_llm_tpu.models.moe_fuse import (
-    attach_fused_decode_params, fuse_moe_decode_params)
+    attach_fused_decode_params, fuse_moe_decode_params_fat)
 from apertis_llm_tpu.models.params import init_params
 from apertis_llm_tpu.models.quantize import quantize_params
 from apertis_llm_tpu.ops import moe as moe_ops
@@ -50,55 +51,110 @@ def _routing(rng, s, e, k=2):
 
 
 @pytest.mark.parametrize("spread", [False, True])
-def test_fused_matches_dense(spread):
-    e, h, i, s = 4, 64, 128, 16
-    experts = _expert_stack(0, e, h, i, scale_spread=spread)
-    routing = _routing(1, s, e)
-    x = jnp.asarray(np.random.default_rng(2).normal(size=(s, h)), jnp.float32)
-
-    ref = moe_ops.moe_dense(x, routing, experts, "gelu", 1e-12)
-    fused = {**experts, "fused": fuse_moe_decode_params(experts)}
-    got = moe_ops.moe_dense_fused(x, routing, fused, "gelu", 1e-12)
-
-    denom = float(jnp.max(jnp.abs(ref))) + 1e-6
-    rel = float(jnp.max(jnp.abs(got - ref))) / denom
-    assert rel < 0.06, f"fused deviates {rel:.4f} from dense (spread={spread})"
-
-
-def test_fused_from_quantized_stack():
-    """Fusion from an already int8-quantized expert stack stays close."""
+def test_fat_from_quantized_stack_matches_dense(spread):
+    """The fat stack built from the int8 serving tree (the engine's input)
+    stays within the int8 band of the float dense path."""
     e, h, i, s = 4, 64, 128, 8
-    experts = _expert_stack(3, e, h, i)
-    from apertis_llm_tpu.models.quantize import quantize_weight
-    qtree = dict(experts)
-    for key in ("w1", "w2"):
-        wq, ws = quantize_weight(qtree.pop(key))
-        qtree[key + "_q"], qtree[key + "_s"] = wq, ws
+    experts = _expert_stack(3, e, h, i, scale_spread=spread)
     routing = _routing(4, s, e)
     x = jnp.asarray(np.random.default_rng(5).normal(size=(s, h)), jnp.float32)
-
     ref = moe_ops.moe_dense(x, routing, experts, "gelu", 1e-12)
-    fused = {**qtree, "fused": fuse_moe_decode_params(qtree)}
-    got = moe_ops.moe_dense_fused(x, routing, fused, "gelu", 1e-12)
+    qtree = quantize_params({"e": experts}, min_size=0)["e"]
+    assert "w1_q" in qtree and "w2_q" in qtree
+    fat = {**qtree, "fat": fuse_moe_decode_params_fat(qtree)}
+    got = moe_ops.moe_dense_fat(x, routing, fat, "gelu", 1e-12)
     denom = float(jnp.max(jnp.abs(ref))) + 1e-6
-    assert float(jnp.max(jnp.abs(got - ref))) / denom < 0.08
+    tol = 0.12 if spread else 0.06
+    assert float(jnp.max(jnp.abs(got - ref))) / denom < tol
 
 
-def test_fused_active_mask():
-    """Expert masking zeroes the combine exactly like the dense path."""
-    e, h, i, s = 4, 32, 64, 8
-    experts = _expert_stack(6, e, h, i)
-    routing = _routing(7, s, e)
-    x = jnp.asarray(np.random.default_rng(8).normal(size=(s, h)), jnp.float32)
-    mask = jnp.asarray([True, False, True, True])
-
-    ref = moe_ops.moe_dense(x, routing, experts, "gelu", 1e-12,
-                            active_mask=mask)
-    fused = {**experts, "fused": fuse_moe_decode_params(experts)}
-    got = moe_ops.moe_dense_fused(x, routing, fused, "gelu", 1e-12,
-                                  active_mask=mask)
+def test_fat_odd_rows_and_wide_intermediate():
+    e, h, i, s = 2, 32, 256, 13
+    experts = _expert_stack(9, e, h, i)
+    routing = _routing(10, s, e)
+    x = jnp.asarray(np.random.default_rng(11).normal(size=(s, h)), jnp.float32)
+    ref = moe_ops.moe_dense(x, routing, experts, "gelu", 1e-12)
+    fat = {**experts, "fat": fuse_moe_decode_params_fat(experts)}
+    got = moe_ops.moe_dense_fat(x, routing, fat, "gelu", 1e-12)
+    assert got.shape == (s, h)
     denom = float(jnp.max(jnp.abs(ref))) + 1e-6
     assert float(jnp.max(jnp.abs(got - ref))) / denom < 0.06
+
+
+def test_fat_layer_stacked_matches_per_layer():
+    """The layer-stacked fat build equals building each layer alone (the
+    decode scan slices the stack per layer)."""
+    stacked = jax.tree.map(lambda *t: jnp.stack(t),
+                           _expert_stack(12), _expert_stack(13))
+    fat = fuse_moe_decode_params_fat(stacked)
+    for li in range(2):
+        one = fuse_moe_decode_params_fat(
+            jax.tree.map(lambda t: t[li], stacked))
+        for k in one:
+            np.testing.assert_array_equal(np.asarray(fat[k][li]),
+                                          np.asarray(one[k]))
+
+
+def test_ragged_prefill_matches_dense():
+    """Sort-based ragged_dot dispatch at prefill-scale row counts with
+    uneven expert loads equals the all-expert dense combine."""
+    e, h, i, s = 4, 64, 256, 300
+    experts = _expert_stack(20, e, h, i)
+    r = np.random.default_rng(21)
+    # Skewed routing: expert 0 takes most first choices.
+    logits = jnp.asarray(r.normal(size=(s, e)) + np.array([2.0, 0, 0, -1]),
+                         jnp.float32)
+    w, idx = jax.lax.top_k(jax.nn.softmax(logits, -1), 2)
+    zero = jnp.zeros((), jnp.float32)
+    routing = moe_ops.RouterOutput(w / jnp.sum(w, -1, keepdims=True),
+                                   idx.astype(jnp.int32), zero, zero)
+    x = jnp.asarray(r.normal(size=(s, h)), jnp.float32)
+    ref = moe_ops.moe_dense(x, routing, experts, "gelu", 1e-12)
+    got = moe_ops.moe_ragged(x, routing, experts, "gelu", 1e-12)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_engine_attaches_and_generates():
+    from apertis_llm_tpu.inference.engine import InferenceEngine
+
+    cfg = _moe_config()
+    params = quantize_params(init_params(jax.random.PRNGKey(0), cfg),
+                             min_size=0)
+    eng = InferenceEngine(cfg, params)
+    assert "fat" in eng.params["layers"]["ffn"]["experts"]
+    assert "fused" not in eng.params["layers"]["ffn"]["experts"]
+
+    prompt = np.array([[5, 7, 9, 11]], np.int32)
+    out = eng.generate(prompt, max_new_tokens=4, do_sample=False)
+    assert out.shape == (1, 8)
+
+
+def test_engine_moe_greedy_matches_full_forward():
+    """Engine prefill (ragged path) + fat decode produce the greedy tokens
+    of repeated full forwards on the same bf16 tree."""
+    from apertis_llm_tpu.inference.engine import InferenceEngine
+    from apertis_llm_tpu.models import apertis as model_lib
+
+    cfg = ApertisConfig(
+        vocab_size=256, hidden_size=128, num_hidden_layers=2,
+        num_attention_heads=8, intermediate_size=256,
+        attention_type="selective_ssm", ssm_d_state=16,
+        use_expert_system=True, num_experts=4, experts_per_token=2,
+        moe_dense_threshold_tokens=8,   # prompt rows take the ragged path
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        max_position_embeddings=64)
+    params = init_params(jax.random.PRNGKey(3), cfg)
+    prompt = np.asarray([[3, 17, 29, 5, 9, 11, 2, 7]], np.int32)
+    got = InferenceEngine(cfg, params).generate(
+        prompt, max_new_tokens=6, eos_token_id=(), do_sample=False,
+        rng=jax.random.PRNGKey(0))[0].tolist()
+    ids = prompt
+    for _ in range(6):
+        logits = model_lib.forward(params, cfg, jnp.asarray(ids)).logits
+        nxt = int(jnp.argmax(logits[0, -1]))
+        ids = np.concatenate([ids, [[nxt]]], axis=1)
+    assert got == ids[0].tolist()
 
 
 @pytest.mark.parametrize("spread", [False, True])
@@ -106,8 +162,6 @@ def test_fat_matches_dense(spread):
     """Combine-folded two-fat-2D-GEMM path vs the float dense path. The
     spread case exercises W2's shared-per-channel scales (the one extra
     coarsening this layout carries)."""
-    from apertis_llm_tpu.models.moe_fuse import fuse_moe_decode_params_fat
-
     e, h, i, s = 4, 64, 128, 16
     experts = _expert_stack(0, e, h, i, scale_spread=spread)
     routing = _routing(1, s, e)
@@ -123,130 +177,7 @@ def test_fat_matches_dense(spread):
     assert rel < tol, f"fat deviates {rel:.4f} from dense (spread={spread})"
 
 
-@pytest.mark.parametrize("spread", [False, True])
-def test_fat_kernel_matches_dense(spread):
-    """Fused-Pallas fat path (ops/pallas/moe_ffn.expert_ffn_fat, interpret
-    mode off-TPU) vs the float dense path. Same weight layout and W2 scale
-    coarsening as moe_dense_fat; hidden scales are per (row, tile)."""
-    from apertis_llm_tpu.models.moe_fuse import fuse_moe_decode_params_fat
-
-    e, h, i, s = 4, 64, 128, 16
-    experts = _expert_stack(0, e, h, i, scale_spread=spread)
-    routing = _routing(1, s, e)
-    x = jnp.asarray(np.random.default_rng(2).normal(size=(s, h)), jnp.float32)
-
-    ref = moe_ops.moe_dense(x, routing, experts, "gelu", 1e-12)
-    fat = {**experts, "fat": fuse_moe_decode_params_fat(experts)}
-    got = moe_ops.moe_dense_fat_kernel(x, routing, fat, "gelu", 1e-12)
-
-    denom = float(jnp.max(jnp.abs(ref))) + 1e-6
-    rel = float(jnp.max(jnp.abs(got - ref))) / denom
-    tol = 0.12 if spread else 0.06
-    assert rel < tol, f"fat kernel deviates {rel:.4f} (spread={spread})"
-
-
-def test_fat_kernel_active_mask():
-    from apertis_llm_tpu.models.moe_fuse import fuse_moe_decode_params_fat
-
-    e, h, i, s = 4, 32, 64, 8
-    experts = _expert_stack(6, e, h, i)
-    routing = _routing(7, s, e)
-    x = jnp.asarray(np.random.default_rng(8).normal(size=(s, h)), jnp.float32)
-    mask = jnp.asarray([True, False, True, True])
-
-    ref = moe_ops.moe_dense(x, routing, experts, "gelu", 1e-12,
-                            active_mask=mask)
-    fat = {**experts, "fat": fuse_moe_decode_params_fat(experts)}
-    got = moe_ops.moe_dense_fat_kernel(x, routing, fat, "gelu", 1e-12,
-                                       active_mask=mask)
-    denom = float(jnp.max(jnp.abs(ref))) + 1e-6
-    assert float(jnp.max(jnp.abs(got - ref))) / denom < 0.06
-
-
-def test_fat_kernel_odd_rows_and_tile_split():
-    """Row counts off the 32-sublane multiple pad correctly, and a block_n
-    smaller than I exercises the per-(row, tile) scale accumulation."""
-    from apertis_llm_tpu.models.moe_fuse import fuse_moe_decode_params_fat
-    from apertis_llm_tpu.ops.pallas.moe_ffn import expert_ffn_fat
-    from apertis_llm_tpu.ops.pallas.quant_matmul import quantize_rows
-
-    e, h, i, s = 2, 32, 256, 13
-    experts = _expert_stack(9, e, h, i)
-    routing = _routing(10, s, e)
-    x = jnp.asarray(np.random.default_rng(11).normal(size=(s, h)), jnp.float32)
-    ref = moe_ops.moe_dense(x, routing, experts, "gelu", 1e-12)
-
-    fat = fuse_moe_decode_params_fat(experts)
-    mean = jnp.mean(x, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(x - mean), axis=-1, keepdims=True)
-    inv = jnp.where(var > 0, jax.lax.rsqrt(var + 1e-12), 0.0)
-    xq, xs = quantize_rows(x - mean)
-    combine = moe_ops._combine_weights(routing, e, jnp.float32)
-    out = expert_ffn_fat(
-        xq, xs * inv, combine, fat["w1t_q"], fat["w1t_s"], fat["b1t"],
-        fat["w2t_q"], fat["w2t_s"], e, out_dtype=jnp.float32,
-        hidden_act="gelu", block_n=128)
-    out = out + combine @ experts["b2"]
-    denom = float(jnp.max(jnp.abs(ref))) + 1e-6
-    assert float(jnp.max(jnp.abs(out - ref))) / denom < 0.06
-
-
-def test_fat_kernel_bf16_dot2_matches_dense():
-    """bf16-GEMM2 kernel variant (APERTIS_MOE_FATK_BF16DOT2): the hidden is
-    cast to bf16 instead of requantized to int8 — error stays at the same
-    order as the int8 variants."""
-    from apertis_llm_tpu.models.moe_fuse import fuse_moe_decode_params_fat
-    from apertis_llm_tpu.ops.pallas.moe_ffn import expert_ffn_fat
-    from apertis_llm_tpu.ops.pallas.quant_matmul import quantize_rows
-
-    e, h, i, s = 4, 64, 128, 16
-    experts = _expert_stack(0, e, h, i)
-    routing = _routing(1, s, e)
-    x = jnp.asarray(np.random.default_rng(2).normal(size=(s, h)), jnp.float32)
-    ref = moe_ops.moe_dense(x, routing, experts, "gelu", 1e-12)
-
-    fat = fuse_moe_decode_params_fat(experts)
-    mean = jnp.mean(x, axis=-1, keepdims=True)
-    var = jnp.mean(jnp.square(x - mean), axis=-1, keepdims=True)
-    inv = jnp.where(var > 0, jax.lax.rsqrt(var + 1e-12), 0.0)
-    xq, xs = quantize_rows(x - mean)
-    combine = moe_ops._combine_weights(routing, e, jnp.float32)
-    out = expert_ffn_fat(
-        xq, xs * inv, combine, fat["w1t_q"], fat["w1t_s"], fat["b1t"],
-        fat["w2t_q"], fat["w2t_s"], e, out_dtype=jnp.float32,
-        hidden_act="gelu", bf16_dot2=True)
-    out = out + combine @ experts["b2"]
-    denom = float(jnp.max(jnp.abs(ref))) + 1e-6
-    assert float(jnp.max(jnp.abs(out - ref))) / denom < 0.06
-
-
-def test_fat_kernel_layer_stacked_prefetch():
-    """The layer-stacked kernel (scalar-prefetched layer index — the decode
-    scan path that avoids XLA's dynamic-slice copies) matches running each
-    layer's unstacked kernel."""
-    from apertis_llm_tpu.models.moe_fuse import fuse_moe_decode_params_fat
-
-    e, h, i, s, nl = 2, 32, 256, 16, 3
-    stacks = [_expert_stack(20 + li, e, h, i) for li in range(nl)]
-    stacked = {k: jnp.stack([st[k] for st in stacks]) for k in stacks[0]}
-    fat_stack = fuse_moe_decode_params_fat(stacked)
-    routing = _routing(30, s, e)
-    x = jnp.asarray(np.random.default_rng(31).normal(size=(s, h)), jnp.float32)
-
-    for li in range(nl):
-        per_layer = {**stacks[li],
-                     "fat": fuse_moe_decode_params_fat(stacks[li])}
-        want = moe_ops.moe_dense_fat_kernel(
-            x, routing, per_layer, "gelu", 1e-12)
-        got = moe_ops.moe_dense_fat_kernel(
-            x, routing, stacks[li], "gelu", 1e-12,
-            fat_stack=fat_stack, layer_idx=jnp.int32(li))
-        assert float(jnp.max(jnp.abs(got - want))) < 1e-5, f"layer {li}"
-
-
 def test_fat_active_mask():
-    from apertis_llm_tpu.models.moe_fuse import fuse_moe_decode_params_fat
-
     e, h, i, s = 4, 32, 64, 8
     experts = _expert_stack(6, e, h, i)
     routing = _routing(7, s, e)
@@ -263,8 +194,6 @@ def test_fat_active_mask():
 
 
 def test_fat_stacked_shapes():
-    from apertis_llm_tpu.models.moe_fuse import fuse_moe_decode_params_fat
-
     cfg = _moe_config()
     params = init_params(jax.random.PRNGKey(0), cfg)
     qparams = quantize_params(params, min_size=0)
@@ -288,46 +217,6 @@ def _moe_config():
         max_position_embeddings=256)
 
 
-def test_stacked_layer_fusion_shapes():
-    cfg = _moe_config()
-    params = init_params(jax.random.PRNGKey(0), cfg)
-    qparams = quantize_params(params, min_size=0)
-    experts = qparams["layers"]["ffn"]["experts"]
-    fused = fuse_moe_decode_params(experts)
-    L, E, H, I = 2, 4, 64, 128
-    assert fused["w1f_q"].shape == (L, E, H, I)
-    assert fused["w1f_q"].dtype == jnp.int8
-    assert fused["w1f_s"].shape == (L, E, 1, I)
-    assert fused["b1f"].shape == (L, E, I)
-    assert fused["w2f_q"].shape == (L, E, I, H)
-    assert fused["w2f_s"].shape == (L, E, 1, H)
-
-
-def test_engine_attaches_and_generates(monkeypatch):
-    from apertis_llm_tpu.inference.engine import InferenceEngine
-
-    cfg = _moe_config()
-    params = quantize_params(init_params(jax.random.PRNGKey(0), cfg),
-                             min_size=0)
-    eng = InferenceEngine(cfg, params)
-    assert "fat" in eng.params["layers"]["ffn"]["experts"]
-
-    prompt = np.array([[5, 7, 9, 11]], np.int32)
-    out = eng.generate(prompt, max_new_tokens=4, do_sample=False)
-    assert out.shape == (1, 8)
-
-    # Kill switch: APERTIS_MOE_FUSED=0 leaves the tree untouched.
-    monkeypatch.setenv("APERTIS_MOE_FUSED", "0")
-    eng2 = InferenceEngine(cfg, params)
-    assert "fused" not in eng2.params["layers"]["ffn"]["experts"]
-    assert "fat" not in eng2.params["layers"]["ffn"]["experts"]
-
-    # Pallas-kernel mode stays selectable.
-    monkeypatch.setenv("APERTIS_MOE_FUSED", "1")
-    eng3 = InferenceEngine(cfg, params)
-    assert "fused" in eng3.params["layers"]["ffn"]["experts"]
-
-
 def test_attach_idempotent_and_nonmoe_noop():
     cfg = _moe_config()
     params = quantize_params(init_params(jax.random.PRNGKey(0), cfg),
@@ -344,60 +233,3 @@ def test_attach_idempotent_and_nonmoe_noop():
         hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     dense = init_params(jax.random.PRNGKey(1), dense_cfg)
     assert attach_fused_decode_params(dense) is dense
-
-
-def test_grouped_prefill_matches_dense():
-    """Grouped prefill kernel (ops/pallas/moe_grouped.py + moe_grouped_fat):
-    tile-padded expert-sorted dispatch on the SAME fat stack matches the
-    float dense path within the int8 band, at prefill-scale row counts
-    with uneven expert loads (layer-stacked weights, both layers)."""
-    from apertis_llm_tpu.models.moe_fuse import fuse_moe_decode_params_fat
-
-    e, h, i, s, layers = 4, 64, 256, 300, 2
-    experts = _expert_stack(20, e, h, i)
-    stacked = jax.tree.map(
-        lambda t: jnp.stack([t, t * 0.5]), experts)   # (L, E, ...)
-    fat = fuse_moe_decode_params_fat(stacked)
-    routing = _routing(21, s, e)
-    x = jnp.asarray(np.random.default_rng(22).normal(size=(s, h)),
-                    jnp.float32)
-    for li in range(layers):
-        lp = jax.tree.map(lambda t: t[li], stacked)
-        ref = moe_ops.moe_dense(x, routing, lp, "gelu", 1e-12)
-        got = moe_ops.moe_grouped_fat(
-            x, routing, {"b2": lp["b2"]}, "gelu", 1e-12, fat, li)
-        denom = float(jnp.max(jnp.abs(ref))) + 1e-6
-        err = float(jnp.max(jnp.abs(got - ref))) / denom
-        assert err < 0.06, (li, err)
-
-
-def test_grouped_prefill_engine_parity():
-    """End-to-end MoE prefill through the engine: the grouped kernel path
-    (APERTIS_MOE_GROUPED=force) produces the same greedy tokens as the
-    ragged path on the same int8 tree."""
-    import os
-
-    from apertis_llm_tpu.inference.engine import InferenceEngine
-
-    cfg = ApertisConfig(
-        vocab_size=256, hidden_size=128, num_hidden_layers=2,
-        num_attention_heads=8, intermediate_size=256,
-        attention_type="selective_ssm", ssm_d_state=16,
-        use_expert_system=True, num_experts=4, experts_per_token=2,
-        moe_dense_threshold_tokens=8,   # prompt rows take the prefill path
-        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
-        max_position_embeddings=64)
-    params = quantize_params(init_params(jax.random.PRNGKey(3), cfg),
-                             min_size=0)
-    prompt = np.asarray([[3, 17, 29, 5, 9, 11, 2, 7]], np.int32)
-    outs = {}
-    for mode in ("force", "0"):
-        os.environ["APERTIS_MOE_GROUPED"] = mode
-        try:
-            eng = InferenceEngine(cfg, params)
-            outs[mode] = eng.generate(
-                prompt, max_new_tokens=6, eos_token_id=(), do_sample=False,
-                rng=jax.random.PRNGKey(0))[0].tolist()
-        finally:
-            del os.environ["APERTIS_MOE_GROUPED"]
-    assert outs["force"] == outs["0"], outs

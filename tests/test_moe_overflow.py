@@ -1,5 +1,5 @@
 """Quantify the two documented training-mode deviations from the reference
-(VERDICT r1 "missing" #2 and #3):
+(features missing from the first rebuild):
 
 1. MoE capacity-overflow drop order — the reference drops greedily per
    (k, expert) by gate weight (reference: src/model/core.py:564-590); we

@@ -1,7 +1,7 @@
 """Golden-logit parity vs the PyTorch reference (eval mode, fp32).
 
 Each variant builds a small reference model, converts its weights, and checks
-our logits match within 1e-3 (the BASELINE.json bar) — usually far tighter.
+our logits match within 1e-3 (the parity bar) — usually far tighter.
 """
 
 import numpy as np

@@ -66,7 +66,7 @@ def test_sequence_parallel_grads_flow():
 
 # ---------------------------------------------------------------------------
 # User-facing wiring: the trainer's 4th mesh axis routes the model through
-# sequence-parallel scan / ring attention (VERDICT r1 item 2).
+# sequence-parallel scan / ring attention.
 # ---------------------------------------------------------------------------
 
 def _config(**over):

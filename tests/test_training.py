@@ -71,7 +71,7 @@ def test_pretrain_end_to_end(tmp_path):
     final = out / "final"
     assert (final / "pytorch_model.bin").exists()
     assert (final / "config.json").exists()
-    assert (final / "state").exists()       # full train state (orbax)
+    assert (final / "state").exists()       # full train state (numpy)
     assert (final / "vocab.json").exists()  # tokenizer copied alongside
     best = out / "best_model"
     if best.exists():
@@ -193,7 +193,7 @@ def test_grads_finite_with_pad_token_tails(moe):
 
 
 def test_pretrain_dataset_hf_tokenizer(tmp_path):
-    """TPU-repo extension: subword pretraining rows via an HF-style
+    """Extension over the reference: subword pretraining rows via an HF-style
     tokenizer — EOS-terminated, padded, out-of-range ids remapped."""
     import json
     from apertis_llm_tpu.training.datasets import ApertisPretrainDataset

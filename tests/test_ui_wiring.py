@@ -1,5 +1,4 @@
-"""Gradio Blocks wiring smoke test WITHOUT gradio installed (VERDICT r1
-missing #1 / item 9).
+"""Gradio Blocks wiring smoke test WITHOUT gradio installed.
 
 A stub `gradio` module records every component construction and every
 `.click`/`.submit` binding made by ``inference.ui.launch_ui``; the test then

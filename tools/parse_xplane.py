@@ -1,36 +1,41 @@
-"""Parse a jax.profiler xplane.pb: per-line totals, then op aggregation for
-the chosen line (default: the line with the most events)."""
-import sys, glob, collections
-from tensorflow.tsl.profiler.protobuf import xplane_pb2
+"""Summarise a jax.profiler trace: per-line event totals of every GPU device
+plane, then the top operations of the busiest line (or of the line named).
 
-root = sys.argv[1]
-want_line = sys.argv[2] if len(sys.argv) > 2 else None
-paths = glob.glob(root + "/**/*.xplane.pb", recursive=True)
-for path in paths:
-    xs = xplane_pb2.XSpace()
-    xs.ParseFromString(open(path, "rb").read())
-    for plane in xs.planes:
-        if "TPU" not in plane.name:
-            continue
-        print(f"== plane {plane.name}")
-        ev_meta = plane.event_metadata
-        best, best_n = None, -1
-        for line in plane.lines:
-            n = len(line.events)
-            tot = sum(e.duration_ps for e in line.events) / 1e9
-            print(f"  line '{line.name}' (id {line.id}): {n} events, {tot:.1f} ms")
-            if want_line and line.name == want_line:
-                best = line
-            elif not want_line and n > best_n:
-                best, best_n = line, n
-        if best is None:
-            continue
-        print(f"-- aggregating line '{best.name}'")
-        agg, cnt = collections.Counter(), collections.Counter()
-        for ev in best.events:
-            name = ev_meta[ev.metadata_id].name
-            agg[name] += ev.duration_ps / 1e9
-            cnt[name] += 1
-        print(f"   total {sum(agg.values()):.1f} ms")
-        for name, ms in agg.most_common(45):
-            print(f"  {ms:9.2f} ms  x{cnt[name]:5d}  {name[:130]}")
+    python tools/parse_xplane.py <trace_dir> [line_name]
+"""
+import collections
+import glob
+import sys
+
+from jax.profiler import ProfileData
+
+
+def main(root, want_line=None):
+    for path in glob.glob(root + "/**/*.xplane.pb", recursive=True):
+        data = ProfileData.from_file(path)
+        for plane in data.planes:
+            if not plane.name.startswith("/device:GPU"):
+                continue
+            print(f"== plane {plane.name}")
+            best, best_n = None, -1
+            for line in plane.lines:
+                events = list(line.events)
+                tot = sum(e.duration_ns for e in events) / 1e6
+                print(f"  line '{line.name}': {len(events)} events, {tot:.3f} ms")
+                if want_line and line.name == want_line:
+                    best = events
+                elif not want_line and len(events) > best_n:
+                    best, best_n = events, len(events)
+            if not best:
+                continue
+            agg, cnt = collections.Counter(), collections.Counter()
+            for ev in best:
+                agg[ev.name] += ev.duration_ns / 1e6
+                cnt[ev.name] += 1
+            print(f"   total {sum(agg.values()):.3f} ms")
+            for name, ms in agg.most_common(45):
+                print(f"  {ms:9.3f} ms  x{cnt[name]:5d}  {name[:130]}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], sys.argv[2] if len(sys.argv) > 2 else None)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Pipeline-parallel throughput comparison (VERDICT r2 item 6).
+"""Pipeline-parallel throughput comparison.
 
 Runs the same global batch through (a) a single-program baseline on one
 device's worth of mesh, (b) the GPipe schedule, (c) the 1F1B schedule, on
